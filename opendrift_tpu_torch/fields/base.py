@@ -1,0 +1,178 @@
+"""Field providers: host-side readers whose samplers run on the device.
+
+Port of ``opendrift_tpu/fields/base.py``.  A reader is a host object whose
+runtime job is to provide
+
+* a dict of host arrays (``device_state``) for a time window, which the
+  environment copies to the device between output intervals
+  (``fields/environment.py`` via ``interop.device_state_from_numpy``);
+* ``sample(dev_state, varnames, t, lon, lat, z)`` mapping element
+  positions (tensors) and the host float32 step time ``t`` to
+  ``({var: float32 tensor}, covers: bool tensor)``.
+
+Priority chains, fallbacks and vector rotation are applied by the
+environment.  The reader algebra (``+``, ``*``, combine_gaussian) and the
+standalone diagnostics (plot, time series) come with ROADMAP A.9.
+"""
+
+import numpy as np
+import torch
+
+from ..utils import crs as crslib
+from ..utils.xp import tnp
+
+# grid-x/grid-y vector pairs rotated to east/north on projected grids
+# (reference: opendrift/readers/basereader/__init__.py:85-105)
+VECTOR_PAIRS = [
+    ("x_sea_water_velocity", "y_sea_water_velocity"),
+    ("x_wind", "y_wind"),
+    ("sea_ice_x_velocity", "sea_ice_y_velocity"),
+    ("sea_surface_wave_stokes_drift_x_velocity",
+     "sea_surface_wave_stokes_drift_y_velocity"),
+]
+
+# (x, y, speed, to_direction) rows for the derived environment mappings
+# (reference basereader/consts.py:27 vector_pairs_xy)
+SPEED_DIRECTION_PAIRS = [
+    ("x_wind", "y_wind", "wind_speed", "wind_to_direction"),
+    ("sea_ice_x_velocity", "sea_ice_y_velocity", "sea_ice_speed",
+     "direction_of_sea_ice_velocity"),
+    ("x_sea_water_velocity", "y_sea_water_velocity", "sea_water_speed",
+     "sea_water_to_direction"),
+    ("sea_surface_wave_stokes_drift_x_velocity",
+     "sea_surface_wave_stokes_drift_y_velocity",
+     "sea_surface_wave_stokes_drift_speed",
+     "sea_surface_wave_stokes_drift_to_direction"),
+]
+
+# physically plausible bounds per CF standard name, used to scrub corrupt
+# input (reference: basereader/consts.py:2-22, variables.py:630-668)
+STANDARD_NAMES = {
+    "x_sea_water_velocity": {"valid_min": -15.0, "valid_max": 15.0,
+                             "units": "m s-1"},
+    "y_sea_water_velocity": {"valid_min": -15.0, "valid_max": 15.0,
+                             "units": "m s-1"},
+    "x_wind": {"valid_min": -50.0, "valid_max": 50.0, "units": "m s-1"},
+    "y_wind": {"valid_min": -50.0, "valid_max": 50.0, "units": "m s-1"},
+    "sea_water_temperature": {"valid_min": -4.0, "valid_max": 40.0,
+                              "units": "degC"},
+    "sea_water_salinity": {"valid_min": 0.0, "valid_max": 45.0, "units": "1"},
+    "sea_floor_depth_below_sea_level": {"valid_min": -20.0,
+                                        "valid_max": 12000.0, "units": "m"},
+    "sea_surface_height": {"valid_min": -15.0, "valid_max": 15.0, "units": "m"},
+    "significant_height_of_combined_wind_waves_and_swell":
+        {"valid_min": 0.0, "valid_max": 30.0, "units": "m"},
+}
+
+
+class BaseReader:
+    """Host-side reader base.  Subclasses set ``variables`` (CF standard
+    names), ``proj4`` and coverage metadata, and implement ``sample``."""
+
+    name = None
+    variables = None
+    proj4 = "+proj=latlong"
+    start_time = None          # datetime or None = always covered
+    end_time = None
+    time_step = None
+    xmin = None
+    xmax = None
+    ymin = None
+    ymax = None
+    always_valid = False
+
+    def __init__(self):
+        if self.name is None:
+            self.name = type(self).__name__
+        if getattr(self, "crs", None) is None:
+            self.crs = crslib.from_proj4(self.proj4)
+        self._setup_environment_mappings()
+
+    # ----------------------------------------- derived environment mappings
+    def _setup_environment_mappings(self):
+        """Component/magnitude variables derived from what the reader
+        serves (reference basereader/variables.py:449-553)."""
+        self._derived = {}
+        have = set(self.variables or [])
+        y_is_north = getattr(self.crs, "is_latlon", False)
+        for x, y, speed, direction in SPEED_DIRECTION_PAIRS:
+            if speed in have and direction in have and x not in have \
+                    and y_is_north:
+                # the reference assigns cos(direction) to x and sin to y
+                # (variables.py:469-473), reproduced for parity
+                self._derived[x] = ((speed, direction),
+                                    lambda v, s=speed, d=direction:
+                                    v[s] * torch.cos(torch.deg2rad(v[d])))
+                self._derived[y] = ((speed, direction),
+                                    lambda v, s=speed, d=direction:
+                                    v[s] * torch.sin(torch.deg2rad(v[d])))
+                self.variables = list(self.variables) + [x, y]
+            if x in have and y in have and speed not in have:
+                self._derived[speed] = ((x, y),
+                                        lambda v, a=x, b=y:
+                                        torch.hypot(v[a], v[b]))
+                self.variables = list(self.variables) + [speed]
+
+    def expand_derived(self, want):
+        """Split a request into (fetch list incl. sources, derived names)."""
+        if not self._derived:
+            return list(want), []
+        native = [v for v in want if v not in self._derived]
+        derived = [v for v in want if v in self._derived]
+        needed = dict.fromkeys(native)
+        for v in derived:
+            for s in self._derived[v][0]:
+                needed.setdefault(s)
+        return list(needed), derived
+
+    def apply_derived(self, vals, derived):
+        for v in derived:
+            vals[v] = self._derived[v][1](vals)
+        return vals
+
+    # ------------------------------------------------------------------ API
+    def xy2lonlat(self, x, y):
+        return self.crs.inv(np, np.asarray(x, float), np.asarray(y, float))
+
+    def lonlat2xy(self, lon, lat):
+        return self.crs.fwd(np, np.asarray(lon, float), np.asarray(lat, float))
+
+    def prepare(self, **kwargs):
+        """Hook called at run start (reference structured.py:149)."""
+
+    def device_state(self, window_start=None, window_end=None):
+        """Host arrays the sampler needs for this window."""
+        return {}
+
+    def sample(self, dev_state, varnames, t, lon, lat, z):
+        raise NotImplementedError
+
+    def set_run_epoch(self, epoch):
+        """Record the run's t = 0 (a datetime)."""
+        self._run_epoch = epoch
+
+    def _t_offset(self, reference_time):
+        """Seconds from ``reference_time`` to the run epoch."""
+        if reference_time is None:
+            return 0.0
+        return (self._run_epoch - reference_time).total_seconds()
+
+    def rotate_vectors_sampled(self, values, varnames, gamma):
+        """Rotate known grid-x/y vector pairs to east/north by the
+        convergence angle ``gamma`` (radians)."""
+        for xv, yv in VECTOR_PAIRS:
+            if xv in varnames and yv in varnames:
+                values[xv], values[yv] = crslib.rotate_to_eastnorth(
+                    tnp, values[xv], values[yv], gamma)
+        return values
+
+    def __repr__(self):
+        return (f"Reader: {self.name}\n  variables: {self.variables}\n"
+                f"  proj4: {self.proj4}\n")
+
+
+class ContinuousReader(BaseReader):
+    """Analytic readers: defined everywhere in their domain, at any time
+    (reference: basereader/continuous.py:8-46)."""
+
+    always_valid = True

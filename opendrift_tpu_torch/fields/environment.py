@@ -1,0 +1,203 @@
+"""Environment orchestration: reader registry, priority lists, fallbacks.
+
+Port of ``opendrift_tpu/fields/environment.py`` (reference:
+opendrift/models/basemodel/environment.py:20-923).  The priority-ordered
+reader chain is a sequence of sampler calls merged with ``torch.where``
+on per-variable missing masks, ended by scalar fallbacks.  Host-side:
+registry and priority bookkeeping, failure quarantine
+(environment.py:656-674), and the per-window device states, which
+readers build as host arrays and this class copies to the device.
+
+Deferred: the background prefetch thread and ``get_profiles`` /
+``uv_block_plan_index`` (ROADMAP A.4).
+"""
+
+import logging
+from collections import OrderedDict
+
+import torch
+
+from ..errors import VariableNotCoveredError
+from ..interop import device_state_from_numpy
+from .. import rng
+from .analytic import ConstantReader
+
+logger = logging.getLogger(__name__)
+
+
+class Environment:
+    def __init__(self, required_variables, device, max_reader_fails=1):
+        self.required_variables = required_variables
+        self.device = device
+        self.readers = OrderedDict()
+        self.priority_list = OrderedDict()
+        self.max_reader_fails = max_reader_fails
+        self.reader_fail_count = {}
+        self.discarded_readers = {}
+        self.fallback_values = {}
+        self.uncertainty = []
+        self._plan = None
+
+    # ------------------------------------------------------------- registry
+    def add_reader(self, readers, variables=None, first=False):
+        if not isinstance(readers, (list, tuple)):
+            readers = [readers]
+        for reader in readers:
+            name = reader.name
+            base = name
+            suffix = 0
+            while name in self.readers \
+                    and self.readers[name] is not reader:
+                suffix += 1
+                name = f"{base}_{suffix}"
+            reader.name = name
+            self.readers[name] = reader
+            for var in reader.variables:
+                if variables is not None and var not in variables:
+                    continue
+                chain = self.priority_list.setdefault(var, [])
+                if name not in chain:
+                    if first:
+                        chain.insert(0, name)
+                    else:
+                        chain.append(name)
+
+    def set_fallback(self, variable, value):
+        self.fallback_values[variable] = value
+
+    # ------------------------------------------------------------- finalize
+    def finalize(self, run_epoch, required_profiles=(), constant_overrides=(),
+                 fallback_overrides=None):
+        """Resolve the sampling plan before a run: ``constant_overrides``
+        become a top-priority constant reader (reference
+        environment.py:172-196), ``fallback_overrides`` the fallbacks."""
+        if constant_overrides:
+            self.add_reader(ConstantReader(dict(constant_overrides),
+                                           name="constant_overrides"),
+                            first=True)
+        for var, val in (fallback_overrides or {}).items():
+            if val is not None:
+                self.fallback_values[var] = val
+        for var, spec in self.required_variables.items():
+            if var not in self.fallback_values and "fallback" in spec:
+                self.fallback_values[var] = spec["fallback"]
+        plan = []
+        for reader in self.readers.values():
+            served = [v for v in reader.variables
+                      if v in self.required_variables]
+            if served:
+                plan.append((reader, served))
+            reader.set_run_epoch(run_epoch)
+        self._plan = plan
+        missing = [v for v in self.required_variables
+                   if not self.priority_list.get(v)
+                   and self.fallback_values.get(v, None) is None
+                   and "fallback" not in self.required_variables[v]]
+        if missing:
+            raise VariableNotCoveredError(
+                f"Missing required environment variables with no fallback: "
+                f"{missing}")
+        self.required_profiles = list(required_profiles)
+
+    def prepare_readers(self, extent=None, start_time=None, end_time=None,
+                        max_speed=None, interval_seconds=None,
+                        truncate_depth=None, pair_hint=None):
+        """Give every reader its run context: extent (halo subsetting),
+        time range, window length, depth truncation and the row-tier hint
+        (overwritten on every reader, as the JAX package does)."""
+        for reader in self.readers.values():
+            reader.truncate_depth = (float(truncate_depth)
+                                     if truncate_depth is not None else None)
+            reader.pair_hint = pair_hint
+            reader.prepare(extent=extent, start_time=start_time,
+                           end_time=end_time, max_speed=max_speed,
+                           interval_seconds=interval_seconds,
+                           variables=list(self.required_variables))
+
+    # ----------------------------------------------------- window device IO
+    def build_device_states(self, window_start=None, window_end=None):
+        """Per-reader device states for a time window (host packing, then
+        one copy to the device), with the failure-quarantine policy."""
+        states = []
+        for reader, served in self._plan:
+            if reader.name in self.discarded_readers:
+                states.append(None)
+                continue
+            try:
+                host = reader.device_state(window_start, window_end)
+            except Exception as e:  # noqa: BLE001 — any reader error counts
+                n = self.reader_fail_count.get(reader.name, 0) + 1
+                self.reader_fail_count[reader.name] = n
+                if n >= self.max_reader_fails:
+                    logger.warning(
+                        "Reader %s failed %d time(s) — discarding: %s",
+                        reader.name, n, e)
+                    self.discarded_readers[reader.name] = str(e)
+                states.append(None)
+                continue
+            states.append(device_state_from_numpy(host, self.device))
+        return tuple(states)
+
+    # ------------------------------------------------------ device sampling
+    def has_reader_for(self, variable):
+        """True when an active reader (not just a fallback) serves it."""
+        for reader, served in (self._plan or []):
+            if reader.name in self.discarded_readers:
+                continue
+            if variable in served and \
+                    reader.name in self.priority_list.get(variable, []):
+                return True
+        return False
+
+    def get_environment(self, dev_states, varnames, t, lon, lat, z,
+                        key=None):
+        """Sample ``varnames`` at the element positions and host time
+        ``t`` through the priority chains (reference
+        environment.py:499-923).  ``key``: optional rng key enabling the
+        configured current/wind uncertainty noise (reference
+        environment.py:865-891).  Returns (env var -> float32 tensor,
+        missing var -> bool tensor)."""
+        varnames = list(varnames)
+        nanval = torch.full_like(lon, float("nan"))
+        env = {v: nanval for v in varnames}
+        missing = {v: torch.ones_like(lon, dtype=torch.bool)
+                   for v in varnames}
+        for (reader, served), dev_state in zip(self._plan, dev_states):
+            if reader.name in self.discarded_readers:
+                continue
+            want = [v for v in served if v in varnames
+                    and reader.name in self.priority_list.get(v, [])]
+            if not want:
+                continue
+            fetch, derived = reader.expand_derived(want)
+            vals, covers = reader.sample(dev_state, fetch, t, lon, lat, z)
+            if derived:
+                vals = reader.apply_derived(vals, derived)
+            for v in want:
+                good = missing[v] & covers & torch.isfinite(vals[v])
+                env[v] = torch.where(good, vals[v], env[v])
+                missing[v] = missing[v] & ~good
+        for v in varnames:
+            fb = self.fallback_values.get(v, None)
+            if fb is not None:
+                env[v] = torch.where(missing[v], float(fb), env[v])
+                missing[v] = torch.zeros_like(missing[v])
+        # Kelvin -> Celsius sanity (reference environment.py:829)
+        if "sea_water_temperature" in env:
+            T = env["sea_water_temperature"]
+            env["sea_water_temperature"] = torch.where(T > 100.0,
+                                                       T - 273.15, T)
+        if key is not None and self.uncertainty:
+            for i, (pair, std, uniform) in enumerate(self.uncertainty):
+                sub = rng.fold_in(key, i)
+                for j, var in enumerate(pair):
+                    if var not in env:
+                        continue
+                    k2 = rng.fold_in(sub, j)
+                    if uniform:
+                        noise = rng.uniform(k2, lon.shape, -std, std,
+                                            lon.device)
+                    else:
+                        noise = std * rng.normal(k2, lon.shape, lon.device)
+                    env[var] = env[var] + noise
+        return env, missing

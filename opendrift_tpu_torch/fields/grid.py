@@ -1,0 +1,413 @@
+"""Structured (regular-grid) readers: host packing + device sampling.
+
+Port of ``opendrift_tpu/fields/grid.py`` (reference: opendrift/readers/
+basereader/structured.py:15-628, interpolation/structured.py:12-186):
+
+* Host side: a subclass reads raw frames (``_read_frame``); the base
+  scrubs, NaN-fills, subsets to the simulation extent with a speed-derived
+  halo, and packs a fixed-shape window of frames into the row layout of
+  ``ops/interp.PackedSampler`` — the same tier choice, column layout and
+  neighbour packing as the JAX package, so both build equal tables.
+* Device side: ``sample`` projects positions to fractional grid indices
+  and gathers/blends rows (plain torch indexing).
+
+Deferred to later slices: the single-fetch corner block (``corner_block``,
+``sample_from_block``) and ``sample_profiles`` (ROADMAP A.3), the 'x' and
+'none' tiers and f16 / compensated storage (A.2), ensemble members and
+domain-decomposition bands (A.14).
+"""
+
+import logging
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+from .base import BaseReader, STANDARD_NAMES
+from ..ops.interp import (fill_invalid, fill_towards_seafloor, PackedSampler)
+from ..utils.xp import tnp
+
+logger = logging.getLogger(__name__)
+
+# variables sampled with nearest-neighbour rather than bilinear
+NEAREST_VARIABLES = {"land_binary_mask"}
+# variables with no time dependence (sampled from frame 0)
+STATIC_VARIABLES = {"land_binary_mask", "sea_floor_depth_below_sea_level"}
+# the row-table budget that picks the packing tier (grid.py:336-363 of the
+# JAX package; the same number keeps the two packages' tables equal)
+ROW_BUDGET_BYTES = 256e6
+UV = ("x_sea_water_velocity", "y_sea_water_velocity")
+
+
+class StructuredGridReader(BaseReader):
+    """Base for readers on regular (equidistant x/y) grids.
+
+    Subclasses set, before ``super().__init__()``: ``self.x``, ``self.y``
+    (1D, equidistant), ``self.times`` (datetimes), ``self.depths`` (1D
+    positive-down ascending, or None), ``self.proj4``, ``self.variables``
+    and ``self._var_has_z``, and implement ``_read_frame(stdname,
+    time_index, zslice, yslice, xslice)`` returning (Z, y, x) or (y, x).
+    """
+
+    def __init__(self):
+        x = np.asarray(self.x, dtype=np.float64)
+        y = np.asarray(self.y, dtype=np.float64)
+        self._flip_x = x[0] > x[-1] if len(x) > 1 else False
+        self._flip_y = y[0] > y[-1] if len(y) > 1 else False
+        if self._flip_x:
+            x = x[::-1]
+        if self._flip_y:
+            y = y[::-1]
+        for name, ax in (("x", x), ("y", y)):
+            if len(ax) > 1:
+                d = np.diff(ax)
+                if d.max() - d.min() > 0.01 * abs(d.mean()):
+                    raise ValueError(
+                        f"{self.name}: {name} axis is not equidistant")
+        self.x = x
+        self.y = y
+        self.delta_x = float(x[1] - x[0]) if len(x) > 1 else 1.0
+        self.delta_y = float(y[1] - y[0]) if len(y) > 1 else 1.0
+        self.xmin, self.xmax = float(x[0]), float(x[-1])
+        self.ymin, self.ymax = float(y[0]), float(y[-1])
+        self.times = list(self.times)
+        self.start_time = self.times[0]
+        self.end_time = self.times[-1]
+        if len(self.times) > 1:
+            deltas = [(b - a).total_seconds()
+                      for a, b in zip(self.times[:-1], self.times[1:])]
+            self.time_step = timedelta(seconds=min(deltas))
+        else:
+            self.time_step = None
+        if getattr(self, "depths", None) is not None:
+            self.depths = np.asarray(self.depths, dtype=np.float32)
+        self._window_frames = 2
+        self._ix = slice(0, len(x))
+        self._iy = slice(0, len(y))
+        self._frame_cache = {}
+        self._max_cached_frames = 64
+        self._group3 = [v for v in self.variables
+                        if self._var_has_z.get(v)
+                        and v not in STATIC_VARIABLES]
+        self._group2 = [v for v in self.variables
+                        if not self._var_has_z.get(v)
+                        and v not in STATIC_VARIABLES]
+        self._groups = [v for v in self.variables if v in STATIC_VARIABLES]
+        super().__init__()
+
+    # ------------------------------------------------------------ prepare
+    def prepare(self, extent=None, start_time=None, end_time=None,
+                max_speed=None, interval_seconds=None, variables=None):
+        """Subset the grid to the simulation extent with a halo, restrict
+        the loaded variables to those required, and fix the per-window
+        frame count."""
+        if variables is not None:
+            wanted = [v for v in self.variables if v in variables]
+            self._group3 = [v for v in self._group3 if v in wanted]
+            self._group2 = [v for v in self._group2 if v in wanted]
+            self._groups = [v for v in self._groups if v in wanted]
+        if extent is not None and max_speed is not None:
+            lonmin, latmin, lonmax, latmax = extent
+            lons = np.array([lonmin, lonmax, lonmin, lonmax,
+                             (lonmin + lonmax) / 2, lonmin, lonmax,
+                             (lonmin + lonmax) / 2])
+            lats = np.array([latmin, latmin, latmax, latmax, latmin,
+                             (latmin + latmax) / 2, (latmin + latmax) / 2,
+                             latmax])
+            xs, ys = self.lonlat2xy(lons, lats)
+            xs = np.asarray(xs, dtype=np.float64)
+            ys = np.asarray(ys, dtype=np.float64)
+            if not np.isfinite(xs).all() or not np.isfinite(ys).all():
+                xs = np.concatenate([xs[np.isfinite(xs)],
+                                     [self.x[0], self.x[-1]]])
+                ys = np.concatenate([ys[np.isfinite(ys)],
+                                     [self.y[0], self.y[-1]]])
+            dt_r = (self.time_step.total_seconds()
+                    if self.time_step else 3600.0)
+            halo_x = int(abs(max_speed * dt_r / self.delta_x)) + 2
+            halo_y = int(abs(max_speed * dt_r / self.delta_y)) + 2
+            ix0 = int(np.clip((np.nanmin(xs) - self.x[0]) / self.delta_x
+                              - halo_x, 0, len(self.x) - 2))
+            ix1 = int(np.clip((np.nanmax(xs) - self.x[0]) / self.delta_x
+                              + halo_x + 2, ix0 + 2, len(self.x)))
+            iy0 = int(np.clip((np.nanmin(ys) - self.y[0]) / self.delta_y
+                              - halo_y, 0, len(self.y) - 2))
+            iy1 = int(np.clip((np.nanmax(ys) - self.y[0]) / self.delta_y
+                              + halo_y + 2, iy0 + 2, len(self.y)))
+            new_ix, new_iy = slice(ix0, ix1), slice(iy0, iy1)
+            if (new_ix, new_iy) != (self._ix, self._iy):
+                self._frame_cache.clear()
+            self._ix = new_ix
+            self._iy = new_iy
+        if interval_seconds is not None and self.time_step is not None:
+            self._window_frames = min(
+                len(self.times),
+                int(np.ceil(interval_seconds
+                            / self.time_step.total_seconds())) + 2)
+        else:
+            self._window_frames = min(len(self.times), 2)
+
+    # ----------------------------------------------------------- windows -
+    def _frame_indices(self, window_start, window_end):
+        F = self._window_frames
+        n = len(self.times)
+        if window_start is None:
+            i0 = 0
+        else:
+            i0 = np.searchsorted(
+                np.array([t.timestamp() for t in self.times]),
+                window_start.timestamp(), side="right") - 1
+        i0 = int(np.clip(i0, 0, max(n - F, 0)))
+        return list(range(i0, min(i0 + F, n)))
+
+    def _load_frame(self, std, ti):
+        """Scrubbed, NaN-filled frame (host, cached)."""
+        key = (std, ti)
+        if key in self._frame_cache:
+            return self._frame_cache[key]
+        raw = self._read_frame(std, ti, slice(None), self._iy, self._ix)
+        arr = np.asarray(raw, dtype=np.float32)
+        if self._flip_x:
+            arr = arr[..., ::-1]
+        if self._flip_y:
+            arr = arr[..., ::-1, :]
+        arr = self._scrub_frame(std, arr)
+        if len(self._frame_cache) > self._max_cached_frames:
+            self._frame_cache.clear()
+        self._frame_cache[key] = arr
+        return arr
+
+    def _scrub_frame(self, std, arr):
+        """Valid-range scrub + NaN fill (reference interpolation/
+        structured.py:50-71, variables.py:630-668)."""
+        rng = STANDARD_NAMES.get(std)
+        if std in NEAREST_VARIABLES:
+            return np.nan_to_num(arr, nan=1.0)  # unknown -> land
+        if rng is not None:
+            bad = (arr < rng["valid_min"]) | (arr > rng["valid_max"])
+            arr = np.where(bad, np.nan, arr)
+        if arr.ndim == 3:
+            arr = fill_towards_seafloor(arr)
+        arr, _ = fill_invalid(arr)
+        return np.nan_to_num(arr, nan=0.0)
+
+    def device_state(self, window_start=None, window_end=None):
+        """Pack the window's frames into the row layout: host arrays
+        'packed' (Z*y*x, C*k), the narrow u/v companion 'packed_uv',
+        'times' (float32 seconds from the run epoch) and 'depths'."""
+        tidx = self._frame_indices(window_start, window_end)
+        F = len(tidx)
+        ny = self._iy.stop - self._iy.start
+        nx = self._ix.stop - self._ix.start
+        Z = len(self.depths) if (self._group3 and
+                                 getattr(self, "depths", None) is not None) \
+            else 1
+        # depth truncation (reference environment.py:554-562)
+        trunc = getattr(self, "truncate_depth", None)
+        if Z > 1 and trunc is not None:
+            d = np.asarray(self.depths, dtype=np.float32)
+            Z = max(1, min(int(np.searchsorted(d, float(trunc),
+                                               side="left")) + 1, Z))
+        col_of = {}
+        col = 0
+        for v in self._group3 + self._group2:
+            col_of[v] = (col, "t")
+            col += F
+        self._static_packed = [v for v in self._groups
+                               if v not in NEAREST_VARIABLES]
+        self._static_near = [v for v in self._groups
+                             if v in NEAREST_VARIABLES]
+        for v in self._static_packed:
+            col_of[v] = (col, "static")
+            col += 1
+        for v in self._static_near:
+            col_of[v] = (col, "near")
+            col += 1
+        C = col
+        if getattr(self, "packed_dtype", None) not in (None, "float32"):
+            raise NotImplementedError(
+                "packed_dtype other than float32 is not ported yet "
+                "(ROADMAP A.2: f16 and compensated tables)")
+        want_xy = getattr(self, "pair_hint", None) == "xy"
+        base_bytes = Z * ny * nx * max(C, 1) * 4
+        if C > 0 and Z > 1 and base_bytes * 8 < ROW_BUDGET_BYTES and want_xy:
+            pair_mode = "xyz"
+        elif C > 0 and base_bytes * 4 < ROW_BUDGET_BYTES and want_xy:
+            pair_mode = "xy"
+        elif C > 0 and base_bytes * 2 < ROW_BUDGET_BYTES:
+            pair_mode = "x"
+        else:
+            pair_mode = "none"
+        self._sampler = PackedSampler(Z, ny, nx, F, col_of, pair_mode)
+        out = {}
+        if C > 0:
+            packed = self._pack(tidx, col_of, Z, C, pair_mode)
+            out["packed"] = packed.reshape(Z * ny * nx, -1)
+            if all(v in col_of for v in UV):
+                # narrow u/v companion for the RK stage refetches: the
+                # same stencil layout, only the u/v frame columns
+                uv_sub = []
+                for v in UV:
+                    c0 = col_of[v][0]
+                    uv_sub.extend(range(c0, c0 + F))
+                k = {"xy": 4, "xyz": 8}[pair_mode]
+                idx = np.concatenate([np.asarray(uv_sub) + b * C
+                                      for b in range(k)])
+                out["packed_uv"] = np.ascontiguousarray(
+                    out["packed"][:, idx])
+                self._sampler_uv = PackedSampler(
+                    Z, ny, nx, F, {UV[0]: (0, "t"), UV[1]: (F, "t")},
+                    pair_mode)
+        epoch = self._run_epoch
+        out["times"] = np.asarray(
+            [(self.times[ti] - epoch).total_seconds() for ti in tidx],
+            dtype=np.float32)
+        if getattr(self, "depths", None) is not None:
+            out["depths"] = np.asarray(self.depths, dtype=np.float32)[:Z] \
+                if self._group3 else np.asarray(self.depths, np.float32)
+        else:
+            out["depths"] = np.zeros((1,), dtype=np.float32)
+        return out
+
+    def _pack(self, tidx, col_of, Z, C, pair_mode):
+        """The window in the row layout: (Z, ny, nx, C * k)."""
+        ny = self._iy.stop - self._iy.start
+        nx = self._ix.stop - self._ix.start
+        packed = np.empty((Z, ny, nx, C), dtype=np.float32)
+        for v in self._group3:
+            c0 = col_of[v][0]
+            for fi, ti in enumerate(tidx):
+                packed[:, :, :, c0 + fi] = self._load_frame(v, ti)[:Z]
+        for v in self._group2:
+            c0 = col_of[v][0]
+            for fi, ti in enumerate(tidx):
+                packed[:, :, :, c0 + fi] = self._load_frame(v, ti)[None]
+        for v in self._static_packed + self._static_near:
+            packed[:, :, :, col_of[v][0]] = self._load_frame(v, 0)[None]
+
+        def shift_x(a):
+            return np.concatenate([a[:, :, 1:], a[:, :, -1:]], axis=2)
+
+        def shift_y(a):
+            return np.concatenate([a[:, 1:], a[:, -1:]], axis=1)
+        # [base | x+1 | y+1 | x+1,y+1], then the same four at z+1 ('xyz';
+        # the deepest plane repeats, the clamp of z1 = min(z0+1, Z-1))
+        packed = np.concatenate([packed, shift_x(packed), shift_y(packed),
+                                 shift_x(shift_y(packed))], axis=3)
+        if pair_mode == "xyz":
+            packed = np.concatenate(
+                [packed, np.concatenate([packed[1:], packed[-1:]], axis=0)],
+                axis=3)
+        return packed
+
+    # ---------------------------------------------------------- sampling -
+    def _grid_indices(self, lon, lat):
+        x, y = self.crs.fwd(tnp, lon, lat)
+        if getattr(self.crs, "is_latlon", False):
+            x = torch.where(x > self.xmax, x - 360.0, x)
+            x = torch.where(x < self.xmin, x + 360.0, x)
+        x0 = float(self.x[self._ix][0])
+        y0 = float(self.y[self._iy][0])
+        return (x - x0) / self.delta_x, (y - y0) / self.delta_y
+
+    def _covers_idx(self, xi, yi, eps=1e-2):
+        """In-grid test with a small index tolerance for float32 edge
+        rounding (boundary nodes count as covered)."""
+        nx = self._ix.stop - self._ix.start
+        ny = self._iy.stop - self._iy.start
+        return ((xi >= -eps) & (xi <= nx - 1 + eps)
+                & (yi >= -eps) & (yi <= ny - 1 + eps))
+
+    def _time_covered(self, times, t):
+        """Temporal coverage with one reader step of slack either side."""
+        if self.time_step is None:
+            return True
+        slack = self.time_step.total_seconds()
+        t = np.float32(t)
+        return bool((t >= times[0] - slack) & (t <= times[-1] + slack))
+
+    def sample(self, dev_state, varnames, t, lon, lat, z):
+        if "packed_deferred" in dev_state:
+            raise NotImplementedError("domain decomposition (ROADMAP A.14)")
+        xi, yi = self._grid_indices(lon, lat)
+        covers = self._covers_idx(xi, yi)
+        times = dev_state["times"]
+        if not self._time_covered(times, t):
+            covers = torch.zeros_like(covers)
+        depth = torch.clamp_min(-z, 0.0)
+        s = self._sampler
+        values = {}
+        want_t = [v for v in varnames
+                  if v in self._group3 or v in self._group2
+                  or v in self._static_packed]
+        want_n = [v for v in varnames if v in self._static_near]
+        if want_n and not want_t:
+            # mask-only fetch: one rounded-index gather of plane 0
+            x0 = torch.clamp(torch.round(xi).to(torch.int64), 0, s.X - 1)
+            y0 = torch.clamp(torch.round(yi).to(torch.int64), 0, s.Y - 1)
+            g = dev_state["packed"].index_select(0, y0 * s.X + x0)
+            for v in want_n:
+                values[v] = g[:, s.col_of[v][0]].to(torch.float32)
+            return values, covers
+        uv_sampler = getattr(self, "_sampler_uv", None)
+        if (not want_n and uv_sampler is not None
+                and "packed_uv" in dev_state
+                and set(want_t) <= set(uv_sampler.col_of)):
+            # RK stage refetch: u/v from the narrow companion table (same
+            # stencil layout and arithmetic, bit-identical values)
+            rows = uv_sampler.gather_rows(dev_state["packed_uv"], xi, yi,
+                                          depth, dev_state["depths"])
+            values.update(uv_sampler.values(rows, times, t, want_t))
+        elif want_t or want_n:
+            ncols = [s.col_of[v][0] for v in want_n]
+            res = s.gather_rows(dev_state["packed"], xi, yi, depth,
+                                dev_state["depths"],
+                                nearest_cols=ncols or None)
+            if ncols:
+                rows, near = res
+                for v, c in zip(want_n, ncols):
+                    values[v] = near[c]
+            else:
+                rows = res
+            if want_t:
+                values.update(s.values(rows, times, t, want_t))
+        if not self.crs.is_latlon:
+            gamma = self.crs.convergence(tnp, lon, lat)
+            values = self.rotate_vectors_sampled(values, varnames, gamma)
+        return values, covers
+
+
+class ArrayReader(StructuredGridReader):
+    """Structured forcing from in-memory numpy arrays.
+
+    ``data``: {standard_name: ndarray} of shape (F, Y, X), (F, Z, Y, X),
+    or (Y, X) for static fields (landmask, bathymetry)."""
+
+    def __init__(self, data, x, y, times, proj4="+proj=latlong",
+                 depths=None, name=None):
+        self._data = {k: np.asarray(v, dtype=np.float32)
+                      for k, v in data.items()}
+        self.x = np.asarray(x, dtype=np.float64)
+        self.y = np.asarray(y, dtype=np.float64)
+        self.times = list(times)
+        self.proj4 = proj4
+        self.depths = depths
+        self.variables = list(self._data)
+        self._var_has_z = {k: v.ndim == 4 for k, v in self._data.items()}
+        for k, v in self._data.items():
+            static2d = k in STATIC_VARIABLES and v.ndim == 2
+            if not static2d and v.ndim not in (3, 4):
+                raise ValueError(
+                    f"ArrayReader: {k} must be (F,Y,X), (F,Z,Y,X) or "
+                    f"static (Y,X); got shape {v.shape}")
+        if name:
+            self.name = name
+        super().__init__()
+
+    def _read_frame(self, std, ti, zslice, yslice, xslice):
+        a = self._data[std]
+        if a.ndim == 2:          # static (Y, X)
+            return a[yslice, xslice]
+        if a.ndim == 4:
+            return a[ti][zslice, yslice, xslice]
+        return a[ti][yslice, xslice]

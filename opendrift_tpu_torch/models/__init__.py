@@ -1,0 +1,2 @@
+from .base import OpenDriftSimulation, Mode, StepContext  # noqa: F401
+from .oceandrift import OceanDrift, Lagrangian3DArray  # noqa: F401

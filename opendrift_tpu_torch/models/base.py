@@ -1,0 +1,1040 @@
+"""Core simulation engine: ``OpenDriftSimulation``.
+
+Port of the run path of ``opendrift_tpu/models/base.py`` (reference:
+opendrift/models/basemodel/__init__.py:193-2340).  The public API (ctor,
+``set_config``, ``add_reader``, ``seed_elements``, ``run``, ``result``)
+matches upstream; the internals follow the JAX package:
+
+* Elements live in a fixed-capacity ``ElementState`` of torch tensors on
+  one device; deactivation is a status flip, never compaction.
+* Each step — release, environment fetch, missing-data/outside/seafloor
+  handling, aging, the model's ``update`` physics and horizontal
+  diffusion — runs as eager torch on the device, K steps per output
+  interval (there is no jit; CUDA graphs are a later item).  The step
+  order reproduces the reference main loop (basemodel/__init__.py:
+  2193-2304).
+* Random numbers come from one base key folded per (interval, step, use),
+  with threefry bit-equal to the JAX package's (``rng.py``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card a CUDA request raises.  Deferred (ROADMAP A.6/A.7/A.14):
+the automatic coastline landmask and block-backed bisection, the other
+``seed_*`` helpers, domain decomposition and particle sharding, and the
+post-processing and plotting mixins.
+"""
+
+import logging
+from datetime import datetime, timedelta
+from enum import Enum
+from functools import wraps
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..config import Configurable, CONFIG_LEVEL_ESSENTIAL, \
+    CONFIG_LEVEL_BASIC, CONFIG_LEVEL_ADVANCED
+from ..timer import Timeable
+from ..errors import WrongMode
+from ..elements import LagrangianArray, ElementState
+from ..elements.elements import NOT_RELEASED, ACTIVE, \
+    STANDARD_STATUS_CATEGORIES
+from ..fields.environment import Environment
+from ..interop import element_state_from_numpy
+from ..utils.geodesic import direct_np, geodesic_step, \
+    geodesic_step_second_order
+from ..utils.dataset import TrajectoryDataset, DataVar
+from ..utils.xp import tnp
+from .physics import PhysicsContext
+
+logger = logging.getLogger(__name__)
+
+
+class Mode(Enum):
+    """Simulation lifecycle (reference basemodel/__init__.py:78)."""
+    Config = 1
+    Ready = 2
+    Run = 3
+    Result = 4
+
+
+def require_mode(mode, error=None):
+    """Decorator enforcing modes (reference :136-190)."""
+    modes = mode if isinstance(mode, (list, tuple, set)) else [mode]
+
+    def decorator(fn):
+        @wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            if self.mode not in modes:
+                raise WrongMode(modes, self.mode, error)
+            return fn(self, *args, **kwargs)
+        return wrapper
+    return decorator
+
+
+def resolve_device(device):
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another.  A CUDA device without a card raises; the port never
+    carries on quietly on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "opendrift_tpu_torch runs on a CUDA device by default and none "
+            "is available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _seconds(value):
+    """Accept a timedelta or a number of seconds."""
+    if isinstance(value, timedelta):
+        return value.total_seconds()
+    return float(value)
+
+
+class OpenDriftSimulation(Timeable, Configurable):
+    """Abstract base simulation.  Subclasses define ``ElementType``,
+    ``required_variables`` and ``update(ctx)``."""
+
+    ElementType = LagrangianArray
+    required_variables = {}
+    required_profiles_z_range = None
+
+    def __init__(self, loglevel=logging.DEBUG, seed=0, logfile=None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.mode = Mode.Config
+        self.status_categories = list(STANDARD_STATUS_CATEGORIES)
+        self._seedings = []
+        self.num_elements_scheduled_total = 0
+        self.result = None
+        self.rng_seed = seed
+        self._np_random = np.random.RandomState(seed)
+        self.simulation_extent = None
+        if loglevel is not None:
+            logging.basicConfig(level=loglevel)
+        self.env = Environment(self.required_variables, self.device)
+        self._add_base_config()
+        self._add_seed_configs()
+        self._add_environment_configs()
+        self.add_config()  # model hook
+        self.timer_start("total time")
+
+    # ----------------------------------------------------------- config ---
+    def _add_base_config(self):
+        self._add_config({
+            "general:coastline_action": {
+                "type": "enum", "enum": ["none", "stranding", "previous"],
+                "default": "stranding", "level": CONFIG_LEVEL_BASIC,
+                "description": "What happens at the coastline"},
+            "general:seafloor_action": {
+                "type": "enum",
+                "enum": ["none", "lift_to_seafloor", "deactivate", "previous"],
+                "default": "lift_to_seafloor", "level": CONFIG_LEVEL_BASIC,
+                "description": "What happens at the seafloor"},
+            "general:use_auto_landmask": {
+                "type": "bool", "default": True, "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Add a coastline landmask automatically"},
+            "general:rng": {
+                "type": "enum", "enum": ["threefry", "rbg"],
+                "default": "threefry", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Counter-based PRNG of the stochastic "
+                "processes. 'threefry' is bit-reproducible across backends; "
+                "the TPU-only 'rbg' is not available in this port"},
+            "general:time_step_minutes": {
+                "type": "float", "default": 60.0, "min": 1e-6, "max": 1e5,
+                "units": "minutes", "level": CONFIG_LEVEL_BASIC,
+                "description": "Calculation time step"},
+            "general:time_step_output_minutes": {
+                "type": "float", "default": None, "min": 1e-6, "max": 1e6,
+                "units": "minutes", "level": CONFIG_LEVEL_BASIC,
+                "description": "Output time step"},
+            "drift:advection_scheme": {
+                "type": "enum", "enum": ["euler", "runge-kutta", "runge-kutta4"],
+                "default": "euler", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Numerical advection scheme"},
+            "drift:current_uncertainty": {
+                "type": "float", "default": 0.0, "min": 0, "max": 5,
+                "units": "m/s", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Std of gaussian noise added to current"},
+            "drift:current_uncertainty_uniform": {
+                "type": "float", "default": 0.0, "min": 0, "max": 5,
+                "units": "m/s", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Half-width of uniform noise added to current"},
+            "drift:wind_uncertainty": {
+                "type": "float", "default": 0.0, "min": 0, "max": 5,
+                "units": "m/s", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Std of gaussian noise added to wind"},
+            "drift:horizontal_diffusivity": {
+                "type": "float", "default": 0.0, "min": 0, "max": 100000,
+                "units": "m2/s", "level": CONFIG_LEVEL_BASIC,
+                "description": "Horizontal diffusivity"},
+            "drift:max_age_seconds": {
+                "type": "float", "default": None, "min": 0, "max": 1e10,
+                "units": "s", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Retire elements older than this"},
+            "drift:max_speed": {
+                "type": "float", "default": 2.0, "min": 0, "max": 100,
+                "units": "m/s", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Speed bound used for coverage/halo sizing"},
+            "drift:position_update": {
+                "type": "enum", "enum": ["fused", "sequential"],
+                "default": "fused", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "'fused' sums process velocities and "
+                "commits one geodesic solve per step; 'sequential' "
+                "solves per process like the reference"},
+            "drift:geodesy": {
+                "type": "enum", "enum": ["second_order", "vincenty"],
+                "default": "second_order",
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Committed position update: 'second_order' "
+                "ellipsoidal expansion or the full 'vincenty' direct solve"},
+            "drift:deactivate_north_of": {
+                "type": "float", "default": None, "min": -90, "max": 90,
+                "units": "degrees", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Deactivate elements north of this latitude"},
+            "drift:deactivate_south_of": {
+                "type": "float", "default": None, "min": -90, "max": 90,
+                "units": "degrees", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Deactivate elements south of this latitude"},
+            "drift:deactivate_east_of": {
+                "type": "float", "default": None, "min": -360, "max": 360,
+                "units": "degrees", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Deactivate elements east of this longitude"},
+            "drift:deactivate_west_of": {
+                "type": "float", "default": None, "min": -360, "max": 360,
+                "units": "degrees", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Deactivate elements west of this longitude"},
+            "readers:max_number_of_fails": {
+                "type": "int", "default": 1, "min": 1, "max": 100,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Discard readers failing more often than this"},
+            "seed:ocean_only": {
+                "type": "bool", "default": True, "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Relocate land-seeded elements to the ocean"},
+            "seed:number": {
+                "type": "int", "default": 1, "min": 1, "max": 10 ** 9,
+                "level": CONFIG_LEVEL_ESSENTIAL,
+                "description": "Default number of elements per seeding"},
+            "drift:advection_single_fetch": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "RK stages re-evaluate one gathered corner "
+                "block (not ported yet: ROADMAP A.3)"},
+            "export:buffer_length": {
+                "type": "int", "default": 100, "min": 0, "max": 10 ** 6,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Flush the outfile every this many output "
+                "steps during the run; 0 writes only at the end"},
+        })
+
+    def _add_seed_configs(self):
+        """``seed:<var>`` configs from the element schema
+        (reference basemodel/__init__.py:529-545)."""
+        specs = {}
+        for name, spec in self.ElementType.variables.items():
+            if not spec.get("seed", True) or name in ("lon", "lat"):
+                continue
+            default = spec.get("default", 0.0)
+            specs[f"seed:{name}"] = {
+                "type": "float" if not isinstance(default, str) else "str",
+                "default": default, "units": spec.get("units"),
+                "min": spec.get("min", -1e30), "max": spec.get("max", 1e30),
+                "level": CONFIG_LEVEL_BASIC,
+                "description": spec.get("description", f"Seed value of {name}")}
+        self._add_config(specs)
+
+    def _add_environment_configs(self):
+        """``environment:constant/fallback:<var>`` configs
+        (reference environment.py:41-76)."""
+        specs = {}
+        for var, spec in self.required_variables.items():
+            specs[f"environment:constant:{var}"] = {
+                "type": "float", "default": None, "min": -1e30, "max": 1e30,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": f"Use constant value for {var}"}
+            specs[f"environment:fallback:{var}"] = {
+                "type": "float", "default": spec.get("fallback", None),
+                "min": -1e30, "max": 1e30, "level": CONFIG_LEVEL_ADVANCED,
+                "description": f"Fallback value for {var} when missing"}
+        self._add_config(specs)
+
+    def add_config(self):
+        """Model hook to register extra config keys."""
+
+    # ----------------------------------------------------------- readers --
+    @require_mode([Mode.Config, Mode.Ready])
+    def add_reader(self, readers, variables=None, first=False):
+        self.env.add_reader(readers, variables=variables, first=first)
+        return self
+
+    # ----------------------------------------------------------- seeding --
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_elements(self, lon, lat, time=None, radius=0, number=None,
+                      radius_type="gaussian", origin_marker=None, **kwargs):
+        """Seed elements at point(s), optionally scattered within ``radius``
+        metres, at one or more times (reference basemodel/__init__.py:1033).
+        ``time``: a datetime, a [start, end] pair, or per-element times."""
+        lon = np.atleast_1d(np.asarray(lon, dtype=np.float64)).ravel()
+        lat = np.atleast_1d(np.asarray(lat, dtype=np.float64)).ravel()
+        if len(lon) != len(lat):
+            raise ValueError("lon and lat must have equal length")
+        num_points = len(lon)
+        if number is None:
+            number = len(kwargs.get("z", [])) \
+                if np.ndim(kwargs.get("z", 0)) else 0
+            number = max(number, num_points,
+                         int(self.get_config("seed:number")))
+        number = int(number)
+        if number < 1:
+            raise ValueError(
+                f"Number of elements to seed must be >= 1, got {number}")
+        if num_points not in (1, number) and number % num_points != 0:
+            raise ValueError(
+                f"Number of elements ({number}) must equal or be a "
+                f"multiple of number of points ({num_points})")
+        if num_points == 1:
+            lon = np.repeat(lon, number)
+            lat = np.repeat(lat, number)
+        elif num_points != number:
+            reps = number // num_points
+            lon = np.repeat(lon, reps)
+            lat = np.repeat(lat, reps)
+            number = len(lon)
+
+        if time is None:
+            raise ValueError("Time of seeding must be specified")
+        if isinstance(time, (list, tuple)) and len(time) == 2 \
+                and isinstance(time[0], datetime):
+            t0, t1 = time
+            frac = np.linspace(0, 1, number)
+            times = np.array([t0 + frac[i] * (t1 - t0)
+                              for i in range(number)])
+        elif isinstance(time, datetime):
+            times = np.array([time] * number)
+        else:
+            times = np.asarray(time)
+            if len(times) == 1:
+                times = np.repeat(times, number)
+            elif len(times) != number:
+                raise ValueError("Length of time array must match number")
+
+        radius = np.atleast_1d(np.asarray(radius, dtype=np.float64)).ravel()
+        if len(radius) == 1:
+            radius = np.repeat(radius, number)
+        if radius.max() > 0:
+            az = self._np_random.uniform(0, 360, number)
+            if radius_type == "gaussian":
+                dist = abs(self._np_random.normal(0, 1, number)) * radius
+            elif radius_type == "uniform":
+                dist = np.sqrt(self._np_random.uniform(0, 1, number)) * radius
+            else:
+                raise ValueError(f"Unknown radius_type: {radius_type}")
+            lat, lon = direct_np(lat, lon, az, dist)
+
+        if origin_marker is None:
+            origin_marker = len(self._seedings)
+        if "environment" in kwargs:
+            raise NotImplementedError(
+                "per-element environment seeding is not ported yet "
+                "(ROADMAP A.6)")
+        props = {}
+        for name in self.ElementType.variables:
+            if name in ("lon", "lat", "origin_marker", "ID", "status"):
+                continue
+            if name in kwargs:
+                v = kwargs.pop(name)
+            else:
+                v = self.get_config(f"seed:{name}", default=None)
+                if v is None:
+                    v = self.ElementType.default(name)
+            v = np.atleast_1d(np.asarray(v))
+            if len(v) == 1:
+                v = np.repeat(v, number)
+            elif len(v) != number:
+                raise ValueError(
+                    f"Seed property {name} has length {len(v)} != {number}")
+            props[name] = v
+        unknown = [k for k in kwargs if k not in ("z",)]
+        if unknown:
+            raise ValueError(f"Unknown seed properties for "
+                             f"{type(self).__name__}: {unknown}")
+        seeding = {
+            "lon": lon.astype(np.float32),
+            "lat": lat.astype(np.float32),
+            "time": times,
+            "origin_marker": np.full(number, origin_marker, dtype=np.int32),
+        }
+        for name, v in props.items():
+            dtype = self.ElementType.variables[name].get("dtype", np.float32)
+            seeding[name] = v.astype(dtype)
+        self._seedings.append(seeding)
+        self.num_elements_scheduled_total += number
+        self.mode = Mode.Ready
+        return self
+
+    # --------------------------------------------------------- status -----
+    def status_code(self, reason):
+        """The status code of a deactivation reason (registering it)."""
+        if reason not in self.status_categories:
+            self.status_categories.append(reason)
+        return self.status_categories.index(reason)
+
+    # ------------------------------------------------------------- run ----
+    @require_mode(Mode.Ready, "Elements must be seeded before running")
+    def run(self, time_step=None, steps=None, duration=None, end_time=None,
+            time_step_output=None, outfile=None, export_variables=None):
+        """Run the simulation; the result lands in ``self.result`` (and in
+        ``outfile``, a CF trajectory NetCDF file, when given)."""
+        self.timer_start("preparing main loop")
+        self.mode = Mode.Run
+        if time_step is None:
+            time_step = timedelta(
+                minutes=self.get_config("general:time_step_minutes"))
+        dt = _seconds(time_step)
+        if dt == 0:
+            raise ValueError("time_step must be non-zero")
+        all_times = np.concatenate([s["time"] for s in self._seedings])
+        self.start_time = all_times.min() if dt > 0 else all_times.max()
+        if steps is None:
+            if duration is not None:
+                duration = abs(_seconds(duration))
+            elif end_time is not None:
+                duration = abs(_seconds(end_time - self.start_time))
+            else:
+                raise ValueError("Provide one of steps, duration or end_time")
+            steps = int(round(duration / abs(dt)))
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError("Simulation needs at least one step")
+        if time_step_output is None:
+            out_cfg = self.get_config("general:time_step_output_minutes")
+            dt_out = out_cfg * 60.0 if out_cfg else abs(dt)
+        else:
+            dt_out = abs(_seconds(time_step_output))
+        K = max(1, int(round(dt_out / abs(dt))))
+        if abs(K * abs(dt) - dt_out) > 1e-9 * abs(dt):
+            raise ValueError(
+                "Output time step must be an integer multiple of time step")
+        n_intervals = steps // K
+        if n_intervals * K != steps:
+            steps = n_intervals * K
+            logger.warning("Rounding steps down to %d (whole output steps)",
+                           steps)
+        self.time_step = timedelta(seconds=dt)
+        self.time_step_output = timedelta(seconds=K * dt)
+        self.steps_calculation = steps
+
+        advance, final_snap, state, base_key = self.prepare_run(
+            dt, K, export_variables=export_variables, total_steps=steps)
+
+        def window(k):
+            a = self.start_time + timedelta(seconds=k * K * dt)
+            b = self.start_time + timedelta(seconds=(k + 1) * K * dt)
+            return (min(a, b), max(a, b))
+
+        self.timer_end("preparing main loop")
+        self.timer_start("main loop")
+        frames, frame_times = [], []
+        writer = None
+        flushed = 0
+        buffer_length = self.get_config("export:buffer_length") or 0
+        if outfile is not None and buffer_length > 0:
+            from ..export.io_netcdf import IncrementalWriter
+            writer = IncrementalWriter(outfile, self._n_real_elements)
+
+        def flush(force=False):
+            nonlocal flushed
+            pending = frames[flushed:]
+            if writer is not None and pending and (
+                    force or len(pending) >= buffer_length):
+                writer.append(pending, frame_times[flushed:])
+                flushed = len(frames)
+
+        def host(snap):
+            return {n: v.cpu().numpy() for n, v in snap.items()}
+
+        def device_states(k):
+            # host packing and the copy to the device, timed apart from
+            # the steps (the copy returns once the tables are on the card)
+            self.timer_start("main loop:readers")
+            states = self.env.build_device_states(*window(k))
+            self.timer_end("main loop:readers")
+            return states
+        try:
+            for k in range(n_intervals):
+                t_rel = np.float32(k * K * dt)
+                dev_states = device_states(k)
+                state, snap = advance(state, dev_states, t_rel,
+                                      rng.fold_in(base_key, k))
+                frames.append(host(snap))
+                frame_times.append(self.start_time
+                                   + timedelta(seconds=float(t_rel)))
+                flush()
+            t_rel = np.float32(n_intervals * K * dt)
+            dev_states = device_states(n_intervals - 1)
+            frames.append(host(final_snap(state, dev_states, t_rel)))
+            frame_times.append(self.start_time
+                               + timedelta(seconds=float(t_rel)))
+            self.state = state
+        except Exception:
+            if writer is not None:
+                flush(force=True)
+                writer.abort_close()
+            if frames:
+                self.result = self._assemble_result(frames, frame_times)
+                self.mode = Mode.Result
+            self.timer_end("main loop")
+            raise
+        self.timer_end("main loop")
+
+        self.timer_start("postprocessing")
+        self.result = self._assemble_result(frames, frame_times)
+        if outfile is not None:
+            if writer is not None:
+                flush(force=True)
+                writer.finalize(self.result)
+            else:
+                from ..export.io_netcdf import write_result
+                write_result(self.result, outfile)
+        self.timer_end("postprocessing")
+        self.timer_end("total time")
+        self.mode = Mode.Result
+        return self
+
+    def prepare_run(self, dt, K, export_variables=None, total_steps=None):
+        """Finalise the environment, build the initial device state and the
+        (advance, final_snapshot) callables.  Split out of ``run`` so
+        benchmarks drive the loop directly."""
+        if getattr(self, "start_time", None) is None:
+            all_times = np.concatenate([s["time"] for s in self._seedings])
+            self.start_time = all_times.min() if dt > 0 else all_times.max()
+            self.time_step = timedelta(seconds=dt)
+            self.time_step_output = timedelta(seconds=K * dt)
+        if self.get_config("general:rng") != "threefry":
+            raise NotImplementedError(
+                "general:rng='rbg' is the TPU hardware generator; the port "
+                "has threefry only")
+        if self.get_config("seed:ocean_only"):
+            for s in self._seedings:
+                s["lon"], s["lat"] = self.closest_ocean_points(
+                    s["lon"], s["lat"])
+        state_np = self._build_initial_state(dt)
+
+        constant_overrides = {}
+        fallback_overrides = {}
+        for var in self.required_variables:
+            c = self.get_config(f"environment:constant:{var}", default=None)
+            if c is not None:
+                constant_overrides[var] = c
+            f = self.get_config(f"environment:fallback:{var}", default=None)
+            if f is not None:
+                fallback_overrides[var] = f
+        hd = self.get_config("drift:horizontal_diffusivity")
+        if hd and "horizontal_diffusivity" in self.required_variables:
+            fallback_overrides["horizontal_diffusivity"] = hd
+        self.env.max_reader_fails = self.get_config(
+            "readers:max_number_of_fails")
+        self.env.finalize(self.start_time,
+                          required_profiles=self.required_profiles(),
+                          constant_overrides=constant_overrides,
+                          fallback_overrides=fallback_overrides)
+        self._auto_landmask_fallback()
+
+        unc = []
+        cu = self.get_config("drift:current_uncertainty")
+        cuu = self.get_config("drift:current_uncertainty_uniform")
+        wu = self.get_config("drift:wind_uncertainty")
+        if cu:
+            unc.append((("x_sea_water_velocity", "y_sea_water_velocity"),
+                        float(cu), False))
+        if cuu:
+            unc.append((("x_sea_water_velocity", "y_sea_water_velocity"),
+                        float(cuu), True))
+        if wu:
+            unc.append((("x_wind", "y_wind"), float(wu), False))
+        self.env.uncertainty = unc
+
+        # simulation extent: seed bbox grown by max_speed * duration
+        # (reference basemodel/__init__.py:2018-2044)
+        max_speed = float(self.get_config("drift:max_speed"))
+        duration = abs(dt) * (total_steps if total_steps is not None else K)
+        lons = np.concatenate([s["lon"] for s in self._seedings])
+        lats = np.concatenate([s["lat"] for s in self._seedings])
+        margin_lat = max_speed * duration / 111000.0
+        coslat = max(np.cos(np.radians(np.abs(lats).max())), 0.05)
+        margin_lon = margin_lat / coslat
+        self.simulation_extent = (
+            float(lons.min() - margin_lon),
+            float(np.clip(lats.min() - margin_lat, -90, 90)),
+            float(lons.max() + margin_lon),
+            float(np.clip(lats.max() + margin_lat, -90, 90)))
+        end_time = self.start_time + timedelta(seconds=dt * (
+            total_steps if total_steps is not None else K))
+        self.env.prepare_readers(
+            extent=self.simulation_extent,
+            start_time=min(self.start_time, end_time),
+            end_time=max(self.start_time, end_time), max_speed=max_speed,
+            interval_seconds=abs(dt) * K,
+            truncate_depth=self.get_config(
+                "drift:truncate_ocean_model_below_m", default=None),
+            pair_hint="xy")
+        if self.get_config("seed:seafloor", default=False):
+            raise NotImplementedError(
+                "seed:seafloor is not ported yet (ROADMAP A.6)")
+        self.export_variables = export_variables
+        advance, final_snap = self._make_advance(K, dt)
+        state = element_state_from_numpy(state_np, self.device)
+        return advance, final_snap, state, rng.PRNGKey(self.rng_seed)
+
+    def _build_initial_state(self, dt):
+        """Host arrays of the initial state (every element NOT_RELEASED,
+        with its release time relative to the start)."""
+        n = self.num_elements_scheduled_total
+        self._n_real_elements = n
+        sign = 1.0 if dt > 0 else -1.0
+        arrays = {}
+        for name, spec in self.ElementType.variables.items():
+            arrays[name] = np.full(n, spec.get("default", 0),
+                                   dtype=spec.get("dtype", np.float32))
+        offset = 0
+        for s in self._seedings:
+            m = len(s["lon"])
+            for kname, v in s.items():
+                if kname != "time" and kname in arrays:
+                    arrays[kname][offset:offset + m] = v
+            offset += m
+        arrays["ID"] = np.arange(1, n + 1, dtype=np.int32)
+        arrays["status"] = np.full(n, NOT_RELEASED, dtype=np.int32)
+        all_times = np.concatenate([s["time"] for s in self._seedings])
+        rel = np.array([(t - self.start_time).total_seconds()
+                        for t in all_times], dtype=np.float32)
+        arrays["release_tau"] = (rel * sign).astype(np.float32)
+        arrays["prev_lon"] = arrays["lon"].copy()
+        arrays["prev_lat"] = arrays["lat"].copy()
+        arrays["prev_z"] = arrays["z"].copy()
+        for var in self.store_previous_env_vars():
+            arrays[f"prev_env_{var}"] = np.full(n, np.nan, dtype=np.float32)
+        return arrays
+
+    def store_previous_env_vars(self):
+        """Environment variables whose previous-step values the model
+        needs (model hook; reference ``store_previous_if``)."""
+        return []
+
+    def _auto_landmask_fallback(self):
+        """Resolve land_binary_mask when no reader serves it and no
+        fallback is set.  The bundled-coastline auto landmask is not ported
+        yet, so the port asks for an explicit choice instead."""
+        if "land_binary_mask" not in self.required_variables:
+            return
+        if self.env.priority_list.get("land_binary_mask") or \
+                self.env.fallback_values.get("land_binary_mask") is not None:
+            return
+        if self.get_config("general:coastline_action") == "none":
+            self.env.fallback_values["land_binary_mask"] = 0.0
+            return
+        raise NotImplementedError(
+            "the automatic coastline landmask is not ported yet (ROADMAP "
+            "A.7); set environment:fallback:land_binary_mask=0 to treat the "
+            "domain as all ocean, or general:coastline_action='none'")
+
+    def closest_ocean_points(self, lon, lat):
+        """Move points on land to the nearest ocean cell of a gridded
+        landmask reader (reference basemodel/__init__.py:1005-1070)."""
+        lon = np.atleast_1d(np.asarray(lon, dtype=np.float64)).copy()
+        lat = np.atleast_1d(np.asarray(lat, dtype=np.float64)).copy()
+        reader = next((r for r in self.env.readers.values()
+                       if "land_binary_mask" in getattr(r, "variables", [])
+                       and hasattr(r, "_load_frame")), None)
+        if reader is None:
+            logger.warning("no gridded landmask available; cannot "
+                           "relocate land points to ocean")
+            return lon, lat
+        land = np.asarray(reader._load_frame("land_binary_mask", 0))
+        if land.ndim == 3:
+            land = land[0]
+        X, Y = np.meshgrid(reader.x[reader._ix], reader.y[reader._iy])
+        lons_g, lats_g = (X, Y) if reader.crs.is_latlon \
+            else reader.crs.inv(np, X, Y)
+        ocean = land < 0.5
+        if not ocean.any():
+            return lon, lat
+        from scipy.spatial import cKDTree
+        pts = np.column_stack([lon, lat])
+        _, idx = cKDTree(np.column_stack([lons_g.ravel(),
+                                          lats_g.ravel()])).query(pts)
+        on_land = land.ravel()[idx] > 0.5
+        if on_land.any():
+            _, oidx = cKDTree(np.column_stack(
+                [lons_g[ocean], lats_g[ocean]])).query(pts[on_land])
+            lon[on_land] = lons_g[ocean][oidx]
+            lat[on_land] = lats_g[ocean][oidx]
+        return lon, lat
+
+    def _cond_holds(self, cond):
+        """Evaluate ``[key, 'is'|'is_not', value]`` (reference
+        basemodel/__init__.py:4966)."""
+        key, op, value = cond
+        current = self.get_config(key, default=None)
+        if op == "is":
+            return current is value or current == value
+        if op == "is_not":
+            return not (current is value or current == value)
+        raise ValueError(f"Unknown conditional operator: {op}")
+
+    def _skip_if_holds(self, spec):
+        cond = spec.get("skip_if")
+        return cond is not None and self._cond_holds(cond)
+
+    def active_required_variables(self):
+        """Required variables minus those skipped by config conditions."""
+        return [v for v, spec in self.required_variables.items()
+                if not self._skip_if_holds(spec)]
+
+    def required_profiles(self):
+        """Variables needing vertical profiles (``profiles_if`` gated)."""
+        out = []
+        for v, spec in self.required_variables.items():
+            if not spec.get("profiles", False) or self._skip_if_holds(spec):
+                continue
+            cond = spec.get("profiles_if")
+            if cond is not None and not self._cond_holds(cond):
+                continue
+            out.append(v)
+        return out
+
+    # --------------------------------------------------------- the step ---
+    def _dynamic_params(self):
+        maxage = self.get_config("drift:max_age_seconds")
+        return {
+            "dt": None,
+            "hdiff": float(self.get_config("drift:horizontal_diffusivity")),
+            "max_age": float(maxage) if maxage is not None else np.inf,
+        }
+
+    def _make_advance(self, K, dt):
+        """Build the (advance_interval, final_snapshot) callables."""
+        params = self._dynamic_params()
+        params["dt"] = float(dt)
+        env = self.env
+        sign = 1.0 if dt > 0 else -1.0
+        coastline_action = self.get_config("general:coastline_action")
+        seafloor_action = self.get_config("general:seafloor_action")
+        env_vars = self.active_required_variables()
+        if env.required_profiles:
+            raise NotImplementedError(
+                "environment profiles (reader-served diffusivity) are not "
+                "ported yet (ROADMAP A.3: sample_profiles)")
+        zlevels = self._profile_zlevels()
+        has_seafloor = "sea_floor_depth_below_sea_level" in env_vars
+        no_fallback_vars = [v for v in env_vars
+                            if env.fallback_values.get(v, None) is None]
+        status_stranded = self.status_code("stranded")
+        status_retired = self.status_code("retired")
+        status_outside = self.status_code("outside")
+        status_missing = self.status_code("missing_data")
+        status_seafloor = self.status_code("seafloor")
+        bounds = [(self.get_config(f"drift:deactivate_{side}_of"), name, op)
+                  for side, name, op in (("west", "lon", torch.lt),
+                                         ("east", "lon", torch.gt),
+                                         ("south", "lat", torch.lt),
+                                         ("north", "lat", torch.gt))]
+        # when no reader serves the landmask (fallback only) there is no
+        # coast to cross: a fallback of 0 never strands anything
+        landmask_spatial = env.has_reader_for("land_binary_mask")
+        coast_active = ("land_binary_mask" in env_vars
+                        and coastline_action != "none"
+                        and (landmask_spatial or float(
+                            env.fallback_values.get("land_binary_mask", 0.0)
+                            or 0.0) > 0.5))
+
+        def coastline(d, active, envs, dev_states, t_rel):
+            """Coastline interaction (reference :670-746): strand at the
+            first land point of the last transect (3 bisection rounds,
+            each one mask fetch, only when something strands), or move
+            back to the previous position."""
+            on_land = envs["land_binary_mask"] > 0.5
+            if coastline_action == "previous":
+                back = active & on_land
+                d["lon"] = torch.where(back, d["prev_lon"], d["lon"])
+                d["lat"] = torch.where(back, d["prev_lat"], d["lat"])
+                return active
+            strand = active & on_land
+            if landmask_spatial and bool(strand.any()):
+                plon, plat = d["prev_lon"], d["prev_lat"]
+                lon_a, lat_a = d["lon"], d["lat"]
+                lo = torch.zeros_like(lon_a)
+                hi = torch.ones_like(lon_a)
+                for _ in range(3):
+                    mid = 0.5 * (lo + hi)
+                    menv, _ = env.get_environment(
+                        dev_states, ["land_binary_mask"], t_rel,
+                        plon + mid * (lon_a - plon),
+                        plat + mid * (lat_a - plat), d["z"])
+                    land = menv["land_binary_mask"] > 0.5
+                    hi = torch.where(land, mid, hi)
+                    lo = torch.where(land, lo, mid)
+                d["lon"] = torch.where(strand, plon + hi * (lon_a - plon),
+                                       lon_a)
+                d["lat"] = torch.where(strand, plat + hi * (lat_a - plat),
+                                       lat_a)
+            d["status"] = torch.where(strand, status_stranded, d["status"])
+            return d["status"] == ACTIVE
+
+        def pre_update(state, dev_states, t_rel, tau, key):
+            """Release, env fetch, deactivations, seafloor — the phase
+            before motion (reference loop :2193-2265)."""
+            d = dict(state.data)
+            release = (d["status"] == NOT_RELEASED) & \
+                (d["release_tau"] < float(tau + np.float32(abs(params["dt"]))))
+            d["status"] = torch.where(release, ACTIVE, d["status"])
+            active = d["status"] == ACTIVE
+            envs, missing = env.get_environment(
+                dev_states, env_vars, t_rel, d["lon"], d["lat"], d["z"],
+                key=key if env.uncertainty else None)
+            if no_fallback_vars:
+                miss_any = torch.zeros_like(active)
+                for v in no_fallback_vars:
+                    miss_any = miss_any | missing[v]
+                d["status"] = torch.where(active & miss_any, status_missing,
+                                          d["status"])
+                active = d["status"] == ACTIVE
+            bad = (~torch.isfinite(d["lon"])) | (~torch.isfinite(d["lat"])) \
+                | (torch.abs(d["lat"]) > 90.0)
+            for value, name, op in bounds:
+                if value is not None:
+                    bad = bad | op(d[name], value)
+            d["status"] = torch.where(active & bad, status_outside,
+                                      d["status"])
+            active = d["status"] == ACTIVE
+            if coast_active:
+                active = coastline(d, active, envs, dev_states, t_rel)
+            if has_seafloor and seafloor_action != "none":
+                depth = envs["sea_floor_depth_below_sea_level"]
+                below = d["z"] < -depth
+                if seafloor_action == "lift_to_seafloor":
+                    d["z"] = torch.where(active & below, -depth, d["z"])
+                elif seafloor_action == "deactivate":
+                    d["status"] = torch.where(active & below,
+                                              status_seafloor, d["status"])
+                elif seafloor_action == "previous":
+                    d["z"] = torch.where(active & below, d["prev_z"], d["z"])
+            return ElementState(d), envs
+
+        def snapshot(state, envs):
+            export = self.export_variables
+            always = ("lon", "lat", "z", "status")
+            snap = {name: state.data[name]
+                    for name in self.ElementType.variables
+                    if export is None or name in export or name in always}
+            snap.update({name: v for name, v in envs.items()
+                         if export is None or name in export})
+            return snap
+
+        def post_update(state, envs, dev_states, t_rel, key):
+            """Aging/retirement, model physics, horizontal diffusion —
+            the phase after the output snapshot (reference :2266-2304)."""
+            d = dict(state.data)
+            active = d["status"] == ACTIVE
+            d["age_seconds"] = torch.where(
+                active, d["age_seconds"] + abs(params["dt"]),
+                d["age_seconds"])
+            d["status"] = torch.where(
+                active & (d["age_seconds"] > params["max_age"]),
+                status_retired, d["status"])
+            d["prev_lon"] = d["lon"]
+            d["prev_lat"] = d["lat"]
+            d["prev_z"] = d["z"]
+            ctx = StepContext(self, ElementState(d), envs, None, dev_states,
+                              t_rel, params, key, zlevels)
+            self.update(ctx)
+            ctx.horizontal_diffusion()
+            ctx.flush_positions()
+            prev = {f"prev_env_{v}": envs[v]
+                    for v in self.store_previous_env_vars() if v in envs}
+            if prev:
+                ctx.state = ctx.state.replace(**prev)
+            return ctx.state
+
+        def step(state, dev_states, t_rel, tau, key, want_snap):
+            state, envs = pre_update(state, dev_states, t_rel, tau,
+                                     rng.fold_in(key, 987654))
+            snap = snapshot(state, envs) if want_snap else None
+            state = post_update(state, envs, dev_states, t_rel, key)
+            return state, snap
+
+        def advance(state, dev_states, t0_rel, key):
+            """K steps from host float32 time ``t0_rel``; returns the new
+            state and the snapshot taken at the first step."""
+            t0_rel = np.float32(t0_rel)
+            state, snap = step(state, dev_states, t0_rel,
+                               t0_rel * np.float32(sign), rng.fold_in(key, 0),
+                               True)
+            for i in range(1, K):
+                t_rel = t0_rel + np.float32(i) * np.float32(params["dt"])
+                state, _ = step(state, dev_states, t_rel,
+                                t_rel * np.float32(sign),
+                                rng.fold_in(key, i), False)
+            return state, snap
+
+        def final_snapshot(state, dev_states, t_rel):
+            t_rel = np.float32(t_rel)
+            state, envs = pre_update(state, dev_states, t_rel,
+                                     t_rel * np.float32(sign),
+                                     rng.PRNGKey(0))
+            return snapshot(state, envs)
+
+        return advance, final_snapshot
+
+    def _profile_zlevels(self):
+        zr = self.required_profiles_z_range or [-20.0, 0.0]
+        return np.linspace(zr[1], zr[0], 9, dtype=np.float32)
+
+    def update(self, ctx):
+        """Model physics for one time step — must be overridden."""
+        raise NotImplementedError(
+            "Subclasses must define an update(ctx) method")
+
+    # --------------------------------------------------- result assembly --
+    def _assemble_result(self, frames, frame_times):
+        from ..export.io_netcdf import valid_mask
+        names = list(frames[0].keys())
+        stacked = {n: np.stack([f[n] for f in frames], axis=-1)
+                   for n in names}  # (N, T)
+        # valid: active frames plus the first dead frame (reference
+        # basemodel/__init__.py:2390-2396)
+        valid = valid_mask(stacked["status"], ACTIVE)
+        variables = {}
+        for n in names:
+            vals = stacked[n]
+            attrs = {}
+            if n in self.ElementType.variables:
+                spec = self.ElementType.variables[n]
+                attrs = {k: v for k, v in spec.items()
+                         if k in ("units", "standard_name", "description")}
+            if np.issubdtype(vals.dtype, np.floating):
+                vals = np.where(valid, vals, np.nan)
+            variables[n] = DataVar(("trajectory", "time"), vals, attrs)
+        coords = {
+            "trajectory": np.arange(1, stacked["status"].shape[0] + 1),
+            "time": np.array(frame_times, dtype="datetime64[ns]"),
+        }
+        attrs = {
+            "opendrift_class": type(self).__name__,
+            "opendrift_module": type(self).__module__,
+            "time_coverage_start": str(frame_times[0]),
+            "time_coverage_end": str(frame_times[-1]),
+            "time_step_calculation": str(self.time_step),
+            "time_step_output": str(self.time_step_output),
+            "status_categories": " ".join(self.status_categories),
+        }
+        attrs.update(self._config_to_attributes())
+        return TrajectoryDataset(variables, coords, attrs)
+
+    def num_elements_total(self):
+        return self.num_elements_scheduled_total
+
+    def __repr__(self):
+        return (f"Model: {type(self).__name__} (mode: {self.mode.name}, "
+                f"device: {self.device})\n"
+                f"  {self.num_elements_scheduled_total} elements scheduled\n"
+                f"  readers: {list(self.env.readers)}\n")
+
+
+class StepContext(PhysicsContext):
+    """Per-step context handed to model ``update`` implementations: the
+    element state, fetched environment, RNG and the physics methods of the
+    reference ``PhysicsMethods`` mixin (physics_methods.py:570)."""
+
+    def __init__(self, sim, state, env, profiles, dev_states, t_rel, params,
+                 key, zlevels):
+        self.sim = sim
+        self.state = state
+        self.environment = env
+        self.profiles = profiles
+        self.dev_states = dev_states
+        self.t_rel = np.float32(t_rel)
+        self.params = params
+        self.zlevels = zlevels
+        self._key = key
+        self._key_counter = 0
+        self._fused_positions = (
+            sim.get_config("drift:position_update") == "fused")
+        self._u_acc = None
+        self._v_acc = None
+
+    # -- RNG ---------------------------------------------------------------
+    def next_key(self):
+        self._key_counter += 1
+        return rng.fold_in(self._key, self._key_counter)
+
+    @property
+    def dt(self):
+        """Signed step length in seconds (negative for backward runs)."""
+        return self.params["dt"]
+
+    @property
+    def active(self):
+        return self.state.data["status"] == ACTIVE
+
+    def get_environment(self, varnames, t_rel, lon, lat, z):
+        key = self.next_key() if self.sim.env.uncertainty else None
+        envs, _ = self.sim.env.get_environment(
+            self.dev_states, varnames, t_rel, lon, lat, z, key=key)
+        return envs
+
+    def update_positions(self, x_vel, y_vel):
+        """Geodesic position update (reference basemodel/__init__.py:4631),
+        masked to active, moving elements.  In 'fused' mode the process
+        velocities are summed and one solve commits them in
+        :meth:`flush_positions`."""
+        mv = self.state.data["moving"]
+        u, v = x_vel * mv, y_vel * mv
+        if not self._fused_positions:
+            self._commit_positions(u, v)
+        elif self._u_acc is None:
+            self._u_acc, self._v_acc = u, v
+        else:
+            self._u_acc = self._u_acc + u
+            self._v_acc = self._v_acc + v
+
+    def flush_positions(self):
+        """Commit accumulated fused-mode velocities (one geodesic solve)."""
+        if self._u_acc is not None:
+            u, v = self._u_acc, self._v_acc
+            self._u_acc = self._v_acc = None
+            self._commit_positions(u, v)
+
+    def _commit_positions(self, u, v):
+        d = self.state.data
+        vincenty = self.sim.get_config("drift:geodesy") == "vincenty"
+        step_fn = geodesic_step if vincenty else geodesic_step_second_order
+        lat2, lon2 = step_fn(tnp, d["lat"], d["lon"], u, v,
+                             self.params["dt"])
+        mask = self.active
+        self.state = self.state.replace(
+            lon=torch.where(mask, lon2, d["lon"]),
+            lat=torch.where(mask, lat2, d["lat"]))
+
+    def set_var(self, name, values, mask=None):
+        d = self.state.data
+        if mask is None:
+            mask = self.active
+        self.state = self.state.replace(
+            **{name: torch.where(mask, values, d[name])})
+
+    def horizontal_diffusion(self):
+        """Random-walk horizontal diffusion (reference
+        basemodel/__init__.py:1746-1772): v = sqrt(2 D / dt) * N(0,1)."""
+        if "horizontal_diffusivity" in self.environment:
+            D = self.environment["horizontal_diffusivity"]
+        else:
+            D = self.params["hdiff"]
+            if D == 0.0:
+                return
+            D = torch.tensor(D, dtype=torch.float32, device=self.sim.device)
+        d = self.state.data
+        std = torch.sqrt(2.0 * D / abs(self.params["dt"]))
+        noise = rng.normal(self.next_key(), (2,) + tuple(d["lon"].shape),
+                           d["lon"].device)
+        self.update_positions(std * noise[0], std * noise[1])

@@ -1,0 +1,318 @@
+"""OceanDrift: generic 3D buoyant tracer model.
+
+Port of ``opendrift_tpu/models/oceandrift.py`` (reference:
+opendrift/models/oceandrift.py:54-714): current + wind + Stokes
+advection, vertical advection, buoyancy, and Visser (1997) random-walk
+vertical mixing.  The mixing inner loop runs through the CUDA kernels of
+``ops/mixing.py`` (their plain versions on the CPU): the windspeed
+parameterisations through ``visser_mixing``, the 'constant' profile
+through ``visser_mixing_profile``.  Reader-served diffusivity profiles
+('environment' with a reader), T/S profiles and the per-substep hooks of
+subclasses (OpenOil, sediments) come with ROADMAP A.3, A.11 and A.12; the
+machine-learning drift correction with A.12.
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..elements import LagrangianArray
+from ..config import CONFIG_LEVEL_BASIC, CONFIG_LEVEL_ADVANCED, \
+    CONFIG_LEVEL_ESSENTIAL
+from ..ops import mixing
+from .base import OpenDriftSimulation
+
+logger = logging.getLogger(__name__)
+
+
+class Lagrangian3DArray(LagrangianArray):
+    """3D element with windage/current factors and terminal velocity
+    (reference oceandrift.py:28-51)."""
+
+    variables = LagrangianArray.add_variables([
+        ("wind_drift_factor", {
+            "dtype": np.float32, "units": "1", "default": 0.02,
+            "description": "Elements at surface are moved with this "
+            "fraction of the wind vector, in addition to currents and "
+            "Stokes drift"}),
+        ("current_drift_factor", {
+            "dtype": np.float32, "units": "1", "default": 1.0,
+            "description": "Elements are moved with this fraction of the "
+            "current vector"}),
+        ("terminal_velocity", {
+            "dtype": np.float32, "units": "m/s", "default": 0.0,
+            "description": "Terminal rise/sinking velocity (buoyancy) in "
+            "the ocean column"}),
+    ])
+
+
+class OceanDrift(OpenDriftSimulation):
+    """Generic 3-dimensional buoyant particle model
+    (reference oceandrift.py:54)."""
+
+    ElementType = Lagrangian3DArray
+
+    required_variables = {
+        "x_sea_water_velocity": {"fallback": 0},
+        "y_sea_water_velocity": {"fallback": 0},
+        "sea_surface_height": {"fallback": 0},
+        "x_wind": {"fallback": 0},
+        "y_wind": {"fallback": 0},
+        "upward_sea_water_velocity": {
+            "fallback": 0, "skip_if": ["drift:vertical_advection", "is", False]},
+        "ocean_vertical_diffusivity": {
+            "fallback": 0, "profiles": True,
+            "profiles_if": ["vertical_mixing:diffusivitymodel", "is",
+                            "environment"],
+            "skip_if": ["drift:vertical_mixing", "is", False]},
+        "horizontal_diffusivity": {"fallback": 0},
+        "sea_surface_wave_significant_height": {"fallback": 0},
+        "sea_surface_wave_stokes_drift_x_velocity": {
+            "fallback": 0, "skip_if": ["drift:stokes_drift", "is", False]},
+        "sea_surface_wave_stokes_drift_y_velocity": {
+            "fallback": 0, "skip_if": ["drift:stokes_drift", "is", False]},
+        "ocean_mixed_layer_thickness": {
+            "fallback": 50, "skip_if": ["drift:vertical_mixing", "is", False]},
+        "sea_floor_depth_below_sea_level": {"fallback": 10000},
+        "land_binary_mask": {"fallback": None},
+    }
+
+    def add_config(self):
+        self._add_config({
+            "drift:vertical_advection": {
+                "type": "bool", "default": True, "level": CONFIG_LEVEL_BASIC,
+                "description": "Advect elements with vertical component of "
+                "ocean current"},
+            "drift:truncate_ocean_model_below_m": {
+                "type": "float", "default": None, "min": 0, "max": 10000,
+                "units": "m", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Ocean model data are only read down to at "
+                "most this depth, and extrapolated below (reference "
+                "oceandrift.py:170)"},
+            "drift:vertical_advection_at_surface": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Allow vertical advection of elements at "
+                "the very surface (z=0)"},
+            "drift:vertical_advection_correction": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Subtract apparent vertical velocity from "
+                "sea-level change"},
+            "drift:water_column_stretching": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Adjust element depth when sea surface "
+                "elevation changes"},
+            "drift:vertical_mixing": {
+                "type": "bool", "default": False, "level": CONFIG_LEVEL_BASIC,
+                "description": "Activate vertical mixing scheme with inner "
+                "loop"},
+            "drift:vertical_mixing_at_surface": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Allow mixing of elements at the very "
+                "surface (z=0)"},
+            "vertical_mixing:timestep": {
+                "type": "float", "default": 60.0, "min": 0.1, "max": 3600,
+                "units": "seconds", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Inner time step of vertical mixing"},
+            "vertical_mixing:diffusivitymodel": {
+                "type": "enum", "default": "environment",
+                "enum": ["environment", "stepfunction",
+                         "windspeed_Sundby1983", "windspeed_Large1994",
+                         "constant"],
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Algorithm/source for vertical diffusivity "
+                "profile"},
+            "vertical_mixing:background_diffusivity": {
+                "type": "float", "default": 1.2e-5, "min": 0, "max": 1,
+                "units": "m2s-1", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Background diffusivity below mixed layer"},
+            "vertical_mixing:TSprofiles": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Use T/S profiles in the mixing inner loop "
+                "(not ported yet: ROADMAP A.3)"},
+            "vertical_mixing:use_pallas": {
+                "type": "bool", "default": True,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Run the mixing inner loop through the "
+                "fused mixing kernels (the name is the JAX package's); the "
+                "generic per-substep loop is not ported yet (ROADMAP A.12)"},
+            "drift:wind_drift_depth": {
+                "type": "float", "default": 0.1, "min": 0, "max": 10,
+                "units": "meters", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Windage decays linearly from the surface "
+                "to zero at this depth"},
+            "drift:stokes_drift": {
+                "type": "bool", "default": True,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Advect elements with Stokes drift"},
+            "drift:stokes_drift_profile": {
+                "type": "enum", "default": "Phillips",
+                "enum": ["monochromatic", "exponential", "Phillips",
+                         "windsea_swell"],
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Stokes drift depth-decay profile"},
+            "drift:use_tabularised_stokes_drift": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Estimate Stokes drift from wind via "
+                "fetch-tabulated coefficients (not ported yet: ROADMAP "
+                "A.12)"},
+            "drift:relative_wind": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Use wind relative to ocean current for "
+                "windage"},
+            "drift:profile_depth": {
+                "type": "float", "default": 50.0, "min": 0, "max": 1000,
+                "units": "m", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Depth to which environment profiles are "
+                "fetched"},
+            "vertical_mixing:profile_levels": {
+                "type": "int", "default": 26, "min": 2, "max": 201,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Number of fixed z-levels for environment "
+                "profiles"},
+            "seed:seafloor": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ESSENTIAL,
+                "description": "Seed elements at seafloor"},
+        })
+
+    def _profile_zlevels(self):
+        depth = float(self.get_config("drift:profile_depth"))
+        L = int(self.get_config("vertical_mixing:profile_levels"))
+        return np.linspace(0.0, -depth, L, dtype=np.float32)
+
+    def store_previous_env_vars(self):
+        if self.get_config("drift:water_column_stretching") or \
+                self.get_config("drift:vertical_advection_correction"):
+            return ["sea_surface_height"]
+        return []
+
+    def water_column_stretching(self, ctx):
+        """Adjust z for sea-level change (reference oceandrift.py:299-313)."""
+        if not self.get_config("drift:water_column_stretching"):
+            return
+        d = ctx.state.data
+        prev = d.get("prev_env_sea_surface_height")
+        if prev is None:
+            return
+        delta = ctx.environment["sea_surface_height"] - prev
+        delta = torch.where(torch.isfinite(delta), delta, 0.0)
+        depth = torch.clamp_min(
+            ctx.environment["sea_floor_depth_below_sea_level"], 0.1)
+        ctx.set_var("z", d["z"] + delta * (d["z"] / depth))
+
+    # ------------------------------------------------------------ update --
+    def update(self, ctx):
+        """One physics step (reference oceandrift.py:185-211)."""
+        self.water_column_stretching(ctx)
+        ctx.advect_ocean_current()
+        ctx.advect_wind()
+        ctx.stokes_drift()
+        if self.get_config("drift:vertical_mixing"):
+            self.vertical_mixing(ctx)
+        else:
+            self.vertical_buoyancy(ctx)
+        self.vertical_advection(ctx)
+
+    # --------------------------------------------------- vertical physics -
+    def vertical_advection(self, ctx):
+        """(reference oceandrift.py:315-350)."""
+        if not self.get_config("drift:vertical_advection"):
+            return
+        d = ctx.state.data
+        w = ctx.environment["upward_sea_water_velocity"]
+        if self.get_config("drift:vertical_advection_correction"):
+            prev = d.get("prev_env_sea_surface_height")
+            if prev is not None:
+                ssh = ctx.environment["sea_surface_height"]
+                delta = torch.where(torch.isfinite(prev), ssh - prev, 0.0)
+                w_surface = delta / ctx.params["dt"]
+                total = ssh + ctx.environment[
+                    "sea_floor_depth_below_sea_level"]
+                w = w - w_surface * (d["z"] + total) / torch.clamp_min(
+                    total, 0.1)
+        if self.get_config("drift:vertical_advection_at_surface"):
+            applicable = d["z"] <= 0.0
+        else:
+            applicable = d["z"] < 0.0
+        new_z = torch.clamp_max(d["z"] + d["moving"] * w * ctx.params["dt"],
+                                0.0)
+        ctx.set_var("z", torch.where(applicable, new_z, d["z"]))
+
+    def vertical_buoyancy(self, ctx):
+        """Buoyancy-only vertical motion (reference oceandrift.py:354-372)."""
+        d = ctx.state.data
+        new_z = torch.clamp_max(
+            d["z"] + d["terminal_velocity"] * ctx.params["dt"], 0.0)
+        z = torch.where(d["z"] < 0.0, new_z, d["z"])
+        zmin = -(ctx.environment["sea_floor_depth_below_sea_level"]
+                 + ctx.sea_surface_height())
+        ctx.set_var("z", torch.maximum(z, zmin))
+
+    def vertical_mixing(self, ctx):
+        """Visser (1997) random-walk mixing inner loop (reference
+        oceandrift.py:397-571), through the mixing kernels."""
+        d = ctx.state.data
+        dt = ctx.params["dt"]
+        dt_mix = float(self.get_config("vertical_mixing:timestep"))
+        dt_mix = dt_mix * (1.0 if dt > 0 else -1.0)
+        ntimes = max(1, abs(int(dt / dt_mix)))
+        zmin = -(ctx.environment["sea_floor_depth_below_sea_level"]
+                 + ctx.sea_surface_height())
+        model = self.get_config("vertical_mixing:diffusivitymodel")
+        if model == "environment":
+            # the reference uses reader profiles only when a reader serves
+            # the variable; with a fallback-only diffusivity it switches to
+            # windspeed_Large1994 (reference oceandrift.py:432-445)
+            if self.env.priority_list.get("ocean_vertical_diffusivity"):
+                raise NotImplementedError(
+                    "reader-served diffusivity profiles are not ported yet "
+                    "(ROADMAP A.3: sample_profiles)")
+            model = "windspeed_Large1994"
+        if self.get_config("vertical_mixing:TSprofiles"):
+            raise NotImplementedError(
+                "vertical_mixing:TSprofiles is not ported yet (ROADMAP A.3)")
+        if not self.get_config("vertical_mixing:use_pallas"):
+            raise NotImplementedError(
+                "the generic per-substep mixing loop is not ported yet "
+                "(ROADMAP A.12); keep vertical_mixing:use_pallas=True")
+        mixing_at_surface = bool(
+            self.get_config("drift:vertical_mixing_at_surface"))
+        # the per-step mixing seed: the first key the step context draws,
+        # as in the JAX package (bit-equal threefry, rng.py)
+        seed = rng.bits(ctx.next_key())
+        w = d.get("terminal_velocity", torch.zeros_like(d["z"]))
+        if model == "constant":
+            fb = float(self.env.fallback_values.get(
+                "ocean_vertical_diffusivity", 0.0))
+            L = ctx.zlevels.shape[0]
+            h = float(ctx.zlevels[0] - ctx.zlevels[1])
+            Kprof = torch.full((L,) + tuple(d["z"].shape), fb,
+                               dtype=torch.float32, device=d["z"].device)
+            # -d(K)/d(level) like the reference's gradK (oceandrift.py
+            # :503-505); levels descend, so the spacing is -h
+            gradK = -torch.gradient(Kprof, dim=0)[0] / (-h)
+            gradK = torch.where(torch.abs(gradK) < 1e-10, 0.0, gradK)
+            z_out = mixing.visser_mixing_profile(
+                d["z"], d["moving"], w, Kprof, gradK, zmin, seed,
+                elem=d["ID"], ntimes=ntimes, dt_mix=dt_mix, h=h,
+                mixing_at_surface=mixing_at_surface)
+        else:
+            z_out = mixing.visser_mixing(
+                d["z"], d["moving"], w, ctx.wind_speed(),
+                ctx.environment.get("ocean_mixed_layer_thickness",
+                                    torch.full_like(d["z"], 50.0)),
+                zmin, seed, elem=d["ID"], ntimes=ntimes, dt_mix=dt_mix,
+                model=model,
+                bg=float(self.get_config(
+                    "vertical_mixing:background_diffusivity")),
+                mixing_at_surface=mixing_at_surface)
+        ctx.set_var("z", torch.where(ctx.active, z_out, d["z"]))

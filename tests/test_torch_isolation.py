@@ -1,0 +1,100 @@
+"""The port stands alone: no module of ``opendrift_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, the package imports with
+JAX made unimportable, and its entry points ask for the card by default.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "opendrift_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "opendrift_tpu")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths.extend(os.path.join(root, f) for f in files
+                     if f.endswith(".py"))
+    return sorted(paths)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and isinstance(
+                node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
+                                            & set(FORBIDDEN))
+           for p in sources}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_imports_with_jax_unimportable():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'jaxlib', 'opendrift_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import opendrift_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'opendrift_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "p.get_model('OceanDrift')\n"
+        "import chip_smoke\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 20
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """Without ``device=`` the port asks for the card and raises where
+    there is none, rather than carrying on on the CPU."""
+    from opendrift_tpu_torch.models import OceanDrift
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OceanDrift(loglevel=40)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OceanDrift(loglevel=40, device="cuda")
+    assert OceanDrift(loglevel=40, device="cpu").device.type == "cpu"
+
+
+def test_smoke_script_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without a card,
+    and alone in a directory without the package."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    code = ("import sys, runpy, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            f"sys.argv = [{script!r}]\n"
+            f"runpy.run_path({script!r}, run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(script).read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
