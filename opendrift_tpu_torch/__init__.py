@@ -6,9 +6,10 @@ anything of ``opendrift_tpu``; the JAX package is the reference every part
 of the port is held against (``tests/test_torch_*.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-The port grows one slice at a time (ROADMAP.md, queue A): this slice is
-one OceanDrift run on gridded forcing with Visser vertical mixing, whose
-two mixing kernels are hand-written CUDA (``csrc/visser_mixing.cu``).
+The port grows one slice at a time (ROADMAP.md, queue A): so far an
+OceanDrift run on gridded forcing with Visser vertical mixing, and an
+OpenOil run (weathering, wave entrainment, stranding).  The three mixing
+kernels are hand-written CUDA (``csrc/visser_mixing.cu``).
 """
 
 import importlib
@@ -17,6 +18,7 @@ __version__ = "0.1.0"
 
 _MODEL_REGISTRY = {
     "OceanDrift": "opendrift_tpu_torch.models.oceandrift",
+    "OpenOil": "opendrift_tpu_torch.models.openoil",
 }
 
 

@@ -99,6 +99,12 @@ class Configurable:
         item.value = self._validate(key, item, value)
         return self
 
+    def _set_config_default(self, key, value):
+        """Change both default and current value (used by model ctors)."""
+        item = self._config[key]
+        item.default = value
+        item.value = self._validate(key, item, value)
+
     def _validate(self, key, item, value):
         t = item.type
         if value is None:

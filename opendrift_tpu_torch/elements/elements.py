@@ -74,7 +74,10 @@ class LagrangianArray:
 
 class ElementState:
     """Fixed-capacity structure of arrays: ``data`` maps variable name ->
-    tensor of shape (capacity,), all on one device.  Updates are
+    tensor whose last axis is the element axis, all on one device:
+    (capacity,) for the schema's variables, (C, capacity) for a model's
+    per-component arrays (OpenOil's ``mass_components``).  A per-element
+    mask of shape (capacity,) broadcasts against either.  Updates are
     functional (``replace`` returns a new state sharing the untouched
     tensors), as in the JAX package."""
 

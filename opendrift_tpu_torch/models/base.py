@@ -6,7 +6,8 @@ opendrift/models/basemodel/__init__.py:193-2340).  The public API (ctor,
 matches upstream; the internals follow the JAX package:
 
 * Elements live in a fixed-capacity ``ElementState`` of torch tensors on
-  one device; deactivation is a status flip, never compaction.
+  one device, the element axis last ((N,), or (C, N) for a model's
+  per-component arrays); deactivation is a status flip, never compaction.
 * Each step — release, environment fetch, missing-data/outside/seafloor
   handling, aging, the model's ``update`` physics and horizontal
   diffusion — runs as eager torch on the device, K steps per output
@@ -18,8 +19,9 @@ matches upstream; the internals follow the JAX package:
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card a CUDA request raises.  Deferred (ROADMAP A.6/A.7/A.14):
-the automatic coastline landmask and block-backed bisection, the other
-``seed_*`` helpers, domain decomposition and particle sharding, and the
+the automatic coastline landmask and block-backed bisection, the
+``seed_*`` helpers other than ``seed_elements`` and ``seed_cone``, domain
+decomposition and particle sharding, and the
 post-processing and plotting mixins.
 """
 
@@ -41,7 +43,7 @@ from ..elements.elements import NOT_RELEASED, ACTIVE, \
     STANDARD_STATUS_CATEGORIES
 from ..fields.environment import Environment
 from ..interop import element_state_from_numpy
-from ..utils.geodesic import direct_np, geodesic_step, \
+from ..utils.geodesic import direct_np, inverse_np, geodesic_step, \
     geodesic_step_second_order
 from ..utils.dataset import TrajectoryDataset, DataVar
 from ..utils.xp import tnp
@@ -371,6 +373,33 @@ class OpenDriftSimulation(Timeable, Configurable):
         self.num_elements_scheduled_total += number
         self.mode = Mode.Ready
         return self
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_cone(self, lon, lat, time, radius=0, number=None, **kwargs):
+        """Seed along a cone (line from (lon0,lat0) to (lon1,lat1) with
+        radius varying linearly), elements spread uniformly in time if a
+        time interval is given (reference basemodel/__init__.py:1240)."""
+        lon = np.atleast_1d(np.asarray(lon, dtype=np.float64))
+        lat = np.atleast_1d(np.asarray(lat, dtype=np.float64))
+        if number is None:
+            number = int(self.get_config("seed:number"))
+        if len(lon) == 1:
+            lons = np.repeat(lon, number)
+            lats = np.repeat(lat, number)
+        elif len(lon) == 2:
+            frac = np.linspace(0, 1, number)
+            # interpolate along the geodesic between the two endpoints
+            az12, _, dist = inverse_np(lat[0], lon[0], lat[1], lon[1])
+            lats, lons = direct_np(np.repeat(lat[0], number),
+                                   np.repeat(lon[0], number),
+                                   np.repeat(az12, number), frac * dist)
+        else:
+            raise ValueError("seed_cone needs 1 or 2 points")
+        radius = np.atleast_1d(np.asarray(radius, dtype=np.float64))
+        if len(radius) == 2:
+            radius = np.linspace(radius[0], radius[1], number)
+        return self.seed_elements(lons, lats, time=time, radius=radius,
+                                  number=number, **kwargs)
 
     # --------------------------------------------------------- status -----
     def status_code(self, reason):
@@ -721,10 +750,15 @@ class OpenDriftSimulation(Timeable, Configurable):
         coastline_action = self.get_config("general:coastline_action")
         seafloor_action = self.get_config("general:seafloor_action")
         env_vars = self.active_required_variables()
-        if env.required_profiles:
+        # profile variables that only have a fallback need no profile:
+        # nothing reads one (vertical_mixing switches 'environment' to
+        # windspeed_Large1994 when no reader serves the diffusivity)
+        served = [v for v in env.required_profiles if env.has_reader_for(v)]
+        if served or self.get_config("vertical_mixing:TSprofiles",
+                                     default=False):
             raise NotImplementedError(
-                "environment profiles (reader-served diffusivity) are not "
-                "ported yet (ROADMAP A.3: sample_profiles)")
+                f"environment profiles (reader-served {served or 'T/S'}) "
+                "are not ported yet (ROADMAP A.3: sample_profiles)")
         zlevels = self._profile_zlevels()
         has_seafloor = "sea_floor_depth_below_sea_level" in env_vars
         no_fallback_vars = [v for v in env_vars

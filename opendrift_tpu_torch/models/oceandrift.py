@@ -6,10 +6,12 @@ advection, vertical advection, buoyancy, and Visser (1997) random-walk
 vertical mixing.  The mixing inner loop runs through the CUDA kernels of
 ``ops/mixing.py`` (their plain versions on the CPU): the windspeed
 parameterisations through ``visser_mixing``, the 'constant' profile
-through ``visser_mixing_profile``.  Reader-served diffusivity profiles
-('environment' with a reader), T/S profiles and the per-substep hooks of
-subclasses (OpenOil, sediments) come with ROADMAP A.3, A.11 and A.12; the
-machine-learning drift correction with A.12.
+through ``visser_mixing_profile``; a subclass can run its own fused
+kernel through the ``_mixing_fast_path`` hook (OpenOil does, through
+``visser_mixing_oil``).  Reader-served diffusivity profiles ('environment'
+with a reader) and T/S profiles come with ROADMAP A.3; the generic
+per-substep loop for subclasses that override the substep hooks, and the
+machine-learning drift correction, with A.12.
 """
 
 import logging
@@ -222,6 +224,34 @@ class OceanDrift(OpenDriftSimulation):
             self.vertical_buoyancy(ctx)
         self.vertical_advection(ctx)
 
+    # ------------------------------------------------------ model hooks ---
+    def update_terminal_velocity(self, ctx, Tprofiles=None, Sprofiles=None,
+                                 zi=None):
+        """Subclass hook: buoyancy from element/environment properties
+        (reference oceandrift.py:285-291)."""
+
+    def prepare_vertical_mixing(self, ctx):
+        """Subclass hook (reference oceandrift.py:293)."""
+
+    def mixing_carry_extra(self, ctx):
+        """Extra per-element arrays carried through the mixing inner loop
+        (e.g. droplet diameter for oil); written back afterwards."""
+        return {}
+
+    def terminal_velocity_inner(self, ctx, z, Tprof, Sprof, mix=None):
+        """Terminal velocity inside the mixing inner loop at depth ``z``;
+        the default is the element property (reference
+        oceandrift.py:509-512)."""
+        return ctx.state.data["terminal_velocity"]
+
+    def _mixing_fast_path(self, ctx, model, ntimes, dt_mix, zmin, moving,
+                          extra, store_depths, has_TS_profiles):
+        """Subclass hook: run the mixing inner loop through a fused kernel
+        of its own and return True, or return False to leave it to the
+        caller (e.g. OpenOil's wave-entrainment kernel,
+        ops/mixing.visser_mixing_oil)."""
+        return False
+
     # --------------------------------------------------- vertical physics -
     def vertical_advection(self, ctx):
         """(reference oceandrift.py:315-350)."""
@@ -267,6 +297,7 @@ class OceanDrift(OpenDriftSimulation):
         ntimes = max(1, abs(int(dt / dt_mix)))
         zmin = -(ctx.environment["sea_floor_depth_below_sea_level"]
                  + ctx.sea_surface_height())
+        self.prepare_vertical_mixing(ctx)
         model = self.get_config("vertical_mixing:diffusivitymodel")
         if model == "environment":
             # the reference uses reader profiles only when a reader serves
@@ -277,18 +308,31 @@ class OceanDrift(OpenDriftSimulation):
                     "reader-served diffusivity profiles are not ported yet "
                     "(ROADMAP A.3: sample_profiles)")
             model = "windspeed_Large1994"
-        if self.get_config("vertical_mixing:TSprofiles"):
-            raise NotImplementedError(
-                "vertical_mixing:TSprofiles is not ported yet (ROADMAP A.3)")
+        # (vertical_mixing:TSprofiles is refused before the first step,
+        # models/base.py ``_make_advance``)
         if not self.get_config("vertical_mixing:use_pallas"):
             raise NotImplementedError(
                 "the generic per-substep mixing loop is not ported yet "
                 "(ROADMAP A.12); keep vertical_mixing:use_pallas=True")
         mixing_at_surface = bool(
             self.get_config("drift:vertical_mixing_at_surface"))
-        # the per-step mixing seed: the first key the step context draws,
-        # as in the JAX package (bit-equal threefry, rng.py)
-        seed = rng.bits(ctx.next_key())
+        # Key order as in the JAX package (bit-equal threefry, rng.py): the
+        # subclass's prepare hook draws first, then this base key, then a
+        # subclass's fast path.  The per-step seed of the kernels below is
+        # the base key's bits.
+        base_key = ctx.next_key()
+        extra = self.mixing_carry_extra(ctx)
+        if self._mixing_fast_path(ctx, model, ntimes, dt_mix, zmin,
+                                  d["moving"], extra, False, False):
+            return
+        if extra or type(self).terminal_velocity_inner \
+                is not OceanDrift.terminal_velocity_inner:
+            raise NotImplementedError(
+                f"{type(self).__name__} overrides the mixing substep hooks "
+                f"and has no fused kernel for diffusivity model {model!r}; "
+                "the generic per-substep mixing loop is not ported yet "
+                "(ROADMAP A.12)")
+        seed = rng.bits(base_key)
         w = d.get("terminal_velocity", torch.zeros_like(d["z"]))
         if model == "constant":
             fb = float(self.env.fallback_values.get(

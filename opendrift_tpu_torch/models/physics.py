@@ -89,6 +89,21 @@ class PhysicsContext:
         self.update_positions(x_wind * wdf_eff * factor,
                               y_wind * wdf_eff * factor)
 
+    def advect_with_sea_ice(self, factor=1.0):
+        """Advect with sea-ice velocity, or the Nordam rule-of-thumb
+        (current + 0.015*wind) when ice velocity is unavailable
+        (reference physics_methods.py:693-710)."""
+        if "sea_ice_x_velocity" in self.environment:
+            self.update_positions(
+                factor * self.environment["sea_ice_x_velocity"],
+                factor * self.environment["sea_ice_y_velocity"])
+        elif "x_sea_water_velocity" in self.environment:
+            u = self.environment["x_sea_water_velocity"] + \
+                0.015 * self.environment.get("x_wind", 0.0)
+            v = self.environment["y_sea_water_velocity"] + \
+                0.015 * self.environment.get("y_wind", 0.0)
+            self.update_positions(factor * u, factor * v)
+
     def stokes_drift(self, factor=1.0):
         """Stokes drift with configurable vertical profile
         (reference physics_methods.py:793-848)."""
@@ -138,6 +153,11 @@ class PhysicsContext:
         yw = self.environment["y_wind"]
         return torch.sqrt(xw * xw + yw * yw)
 
+    def current_speed(self):
+        u = self.environment["x_sea_water_velocity"]
+        v = self.environment["y_sea_water_velocity"]
+        return torch.sqrt(u * u + v * v)
+
     def significant_wave_height(self):
         """(reference physics_methods.py:893-906)."""
         hs = self.environment.get("sea_surface_wave_significant_height")
@@ -160,6 +180,11 @@ class PhysicsContext:
         if tm02 is not None:
             T = torch.where(tm02.max() > 0, tm02, T)
         return T
+
+    def sea_water_density(self):
+        T = self.environment.get("sea_water_temperature", 10.0)
+        S = self.environment.get("sea_water_salinity", 34.0)
+        return ph.sea_water_density(T, S)
 
     def sea_surface_height(self):
         return self.environment.get(

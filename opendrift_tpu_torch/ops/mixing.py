@@ -1,6 +1,6 @@
 """Visser vertical mixing: the CUDA kernels' wrappers and plain versions.
 
-Port of ``opendrift_tpu/ops/pallas_mixing.py``.  Two kernels, written by
+Port of ``opendrift_tpu/ops/pallas_mixing.py``.  Three kernels, written by
 hand for Hopper in ``csrc/visser_mixing.cu`` (the source note there says
 which Pallas kernel each replaces and what bounds it on an H100):
 
@@ -9,12 +9,17 @@ which Pallas kernel each replaces and what bounds it on an H100):
   ``visser_mixing`` (pallas_mixing.py:313);
 * :func:`visser_mixing_profile` — per-element level-major diffusivity
   profiles ('constant', and 'environment' with a reader-served
-  diffusivity), replacing ``visser_mixing_profile`` (pallas_mixing.py:394).
+  diffusivity), replacing ``visser_mixing_profile`` (pallas_mixing.py:394);
+* :func:`visser_mixing_oil` — OpenOil's inner loop: the windspeed walk with
+  the Tkalich rise velocity of the carried droplet diameter and the wave
+  entrainment of surface oil, replacing ``visser_mixing_oil``
+  (pallas_mixing.py:472).
 
 Each wrapper has the JAX signature.  A CUDA tensor launches the kernel on
 the current stream; a CPU tensor takes the plain version beside it
-(:func:`visser_mixing_plain`, :func:`visser_mixing_profile_plain`), which
-is op for op the JAX ``_mix_loop``/``_mix_loop_prof`` in torch.  There is
+(:func:`visser_mixing_plain`, :func:`visser_mixing_profile_plain`,
+:func:`visser_mixing_oil_plain`), which is op for op the JAX
+``_mix_loop``/``_mix_loop_prof``/``_mix_loop_oil`` in torch.  There is
 no fallback: a kernel that fails to build or launch raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
@@ -91,6 +96,9 @@ def load_library():
             lib.visser_mixing_profile_launch.argtypes = [
                 p, p, p, p, p, p, p, u, i, f, f, i, i, i, p, p]
             lib.visser_mixing_profile_launch.restype = i
+            lib.visser_mixing_oil_launch.argtypes = [
+                *([p] * 13), u, i, f, i, f, i, i, i, p, p, p]
+            lib.visser_mixing_oil_launch.restype = i
             _lib = lib
     return _lib
 
@@ -121,10 +129,20 @@ def _element_base(elem, seed):
     return splitmix32((e + ((int(seed) & _M32) * 0x9e3779b9 & _M32)) & _M32)
 
 
+def _substep_bits(base, i):
+    """Substep ``i``'s hash of the per-element base."""
+    return splitmix32((base + (i * 0x85ebca6b & _M32)) & _M32)
+
+
 def _draw(base, i):
     """Substep ``i``'s draw: top 24 bits -> uniform in [-1, 1)."""
-    bits = splitmix32((base + (i * 0x85ebca6b & _M32)) & _M32)
-    return (bits >> 8).to(torch.float32) * (2.0 / 16777216.0) - 1.0
+    return (_substep_bits(base, i) >> 8).to(torch.float32) \
+        * (2.0 / 16777216.0) - 1.0
+
+
+def _unit(bits):
+    """Top 24 bits -> uniform in [0, 1), exact in float32."""
+    return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
 def _finish(z, surface, mv, w, zmin, dt_mix, mixing_at_surface):
@@ -147,6 +165,20 @@ def _diffusivity(model, wind, mld, bg, depth):
     if model == "stepfunction":
         return ph.verticaldiffusivity_stepfunction(depth)
     raise ValueError(f"model {model} has no mixing kernel")
+
+
+def _visser_step(z, moving, wind, mld, upper, bg, model, R, dt_mix, adt):
+    """The random-walk displacement of a windspeed substep: 1-metre
+    nearest levels, one-sided gradient at the surface."""
+    lvl = torch.minimum(torch.clamp_min(torch.round(torch.abs(z)), 0.0),
+                        upper)
+    Kz = _diffusivity(model, wind, mld, bg, lvl)
+    Kup = _diffusivity(model, wind, mld, bg, lvl + 1.0)
+    dKdz = torch.where(
+        lvl == 0.0, Kup - Kz,
+        (Kup - _diffusivity(model, wind, mld, bg,
+                            torch.clamp_min(lvl - 1.0, 0.0))) * 0.5)
+    return z - moving * (dKdz * dt_mix - R * torch.sqrt(Kz * adt * 6.0))
 
 
 def _vec(a, n, device, dtype=torch.float32):
@@ -184,17 +216,8 @@ def visser_mixing_plain(z, moving, w, wind, mld, zmin, elem, seed, *, ntimes,
     upper = mld + 1.0
     for i in range(int(ntimes)):
         surface = z == 0.0
-        R = _draw(base, i)
-        # 1-metre nearest levels, one-sided gradient at the surface
-        lvl = torch.minimum(torch.clamp_min(torch.round(torch.abs(z)), 0.0),
-                            upper)
-        Kz = _diffusivity(model, wind, mld, bg, lvl)
-        Kup = _diffusivity(model, wind, mld, bg, lvl + 1.0)
-        dKdz = torch.where(
-            lvl == 0.0, Kup - Kz,
-            (Kup - _diffusivity(model, wind, mld, bg,
-                                torch.clamp_min(lvl - 1.0, 0.0))) * 0.5)
-        z = z - moving * (dKdz * dt_mix - R * torch.sqrt(Kz * adt * 6.0))
+        z = _visser_step(z, moving, wind, mld, upper, bg, model,
+                         _draw(base, i), dt_mix, adt)
         z = _finish(z, surface, moving, w, zmin, dt_mix, mixing_at_surface)
     return z
 
@@ -294,3 +317,86 @@ def visser_mixing_profile(z, moving, w, Kprof, gradK, zmin, seed, elem=None,
 
 
 visser_mixing_profile.launches = 0
+
+
+# --------------------------------------------------------------- oil ------
+
+def visser_mixing_oil_plain(z, diam, moving, wind, mld, zmin, p_ent, d_cand,
+                            zb, kw, kw2, nu_w, elem, seed, *, ntimes, dt_mix,
+                            model, bg, mixing_at_surface, keep_diam):
+    """Plain torch version of the oil kernel: op for op the JAX
+    ``_mix_loop_oil`` (pallas_mixing.py:133).  Its substep tail is its own:
+    the surface stick comes before the entrainment and the bottom stick
+    after it, so an element put back to the surface can be entrained in
+    the same substep."""
+    adt = abs(dt_mix)
+    base = _element_base(elem, seed)
+    upper = mld + 1.0
+    for i in range(int(ntimes)):
+        surface = z == 0.0
+        # three chained draws: the walk, entrain or not, the intrusion depth
+        bits = _substep_bits(base, i)
+        bits1 = splitmix32((bits + 0xc2b2ae35) & _M32)
+        bits2 = splitmix32((bits1 + 0x27d4eb2f) & _M32)
+        R = _unit(bits) * 2.0 - 1.0
+        # Tkalich rise velocity from the carried diameter
+        r2 = diam * 0.5
+        W = kw * r2 * r2
+        Re = diam * torch.abs(W) / nu_w
+        W2 = kw2 * torch.sqrt(r2)
+        w = torch.where(Re > 50.0, W2, W)
+        z = _visser_step(z, moving, wind, mld, upper, bg, model, R, dt_mix,
+                         adt)
+        z = torch.where(z >= 0.0, -z, z)                   # surface reflect
+        z = torch.where((z < zmin) & (moving == 1.0),
+                        2.0 * zmin - z, z)                 # seafloor reflect
+        z = z + w * dt_mix * moving                        # buoyancy
+        if not mixing_at_surface:
+            z = torch.where(surface, 0.0, z)
+        z = torch.clamp_max(z, 0.0)                        # surface stick
+        # wave entrainment of surface oil (z >= 0 means z == 0 here)
+        entrained = (z >= 0.0) & (_unit(bits1) < p_ent)
+        z = torch.where(entrained, -_unit(bits2) * zb, z)
+        if not keep_diam:
+            diam = torch.where(entrained, d_cand, diam)
+        z = torch.maximum(z, zmin)                         # bottom stick
+    return z, diam
+
+
+def visser_mixing_oil(z, diam, moving, wind, mld, zmin, p_ent, d_cand, zb,
+                      kw, kw2, nu_w, seed, elem=None, *, ntimes, dt_mix,
+                      model, bg, mixing_at_surface, keep_diam):
+    """OpenOil's mixing inner loop: ``ntimes`` Visser substeps with the
+    Tkalich rise velocity of the carried diameter and wave entrainment.
+
+    All array arguments float32 (N,) (scalars broadcast) except ``elem``
+    (int32 element IDs keying the draws; default: the slot index); seed a
+    uint32 or int32 scalar.  Returns (z, diameter), float32 (N,) each."""
+    if model not in _MODEL_CODE:
+        raise ValueError(f"model {model} has no mixing kernel")
+    n = z.shape[0]
+    dev = z.device
+    arrays = tuple(_vec(a, n, dev) for a in (
+        z, diam, moving, wind, mld, zmin, p_ent, d_cand, zb, kw, kw2, nu_w))
+    elem = torch.arange(n, dtype=torch.int32, device=dev) if elem is None \
+        else _vec(elem, n, dev, torch.int32)
+    seed = int(seed) & _M32
+    opts = dict(ntimes=int(ntimes), dt_mix=float(dt_mix), model=model,
+                bg=float(bg), mixing_at_surface=bool(mixing_at_surface),
+                keep_diam=bool(keep_diam))
+    if not _on_card(dev):
+        return visser_mixing_oil_plain(*arrays, elem, seed, **opts)
+    z_out = torch.empty_like(arrays[0])
+    diam_out = torch.empty_like(arrays[0])
+    rc = load_library().visser_mixing_oil_launch(
+        *(a.data_ptr() for a in arrays), elem.data_ptr(), seed,
+        opts["ntimes"], opts["dt_mix"], _MODEL_CODE[model], opts["bg"],
+        int(opts["mixing_at_surface"]), int(opts["keep_diam"]), n,
+        z_out.data_ptr(), diam_out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(rc, "visser_mixing_oil")
+    visser_mixing_oil.launches += 1
+    return z_out, diam_out
+
+
+visser_mixing_oil.launches = 0

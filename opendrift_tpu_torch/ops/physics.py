@@ -5,10 +5,11 @@ reaches (reference: opendrift/models/physics_methods.py:120-560): wave
 height and period from wind, the Stokes drift profiles and the vertical
 diffusivity parameterisations.  Each expression keeps the JAX version's
 operation order (``x ** 2`` as ``x * x``, ``x ** 3`` as ``x * x * x``, as
-XLA lowers integer powers), so both packages round alike.  The
-parameterisations that need other state (fetch-tabulated Stokes drift,
-sea-water density and viscosity, solar geometry) come with the models
-that use them (ROADMAP A.12).
+XLA lowers integer powers), so both packages round alike.  With OpenOil
+came the wave breaking and energy terms and the sea-water density and
+viscosity.  The parameterisations that need other state (fetch-tabulated
+Stokes drift, solar geometry) come with the models that use them
+(ROADMAP A.12).
 """
 
 import math
@@ -36,6 +37,21 @@ def wave_frequency_from_wind(wind_speed):
 
 def wave_period_from_wind(wind_speed):
     return 2.0 * math.pi / wave_frequency_from_wind(wind_speed)
+
+
+def wave_breaking_fraction(wind_speed, wave_period):
+    """Fraction of breaking waves (reference physics_methods.py:185)."""
+    f = 0.032 * (wind_speed - 5.0) / wave_period
+    return torch.clamp_min(f, 0.0)
+
+
+def wave_energy(hs, rho=1028.0):
+    return G * rho * (hs * hs) / 16.0
+
+
+def wave_energy_dissipation(hs, rho):
+    """Delvigne & Sweeney (reference physics_methods.py:950)."""
+    return 0.0034 * rho * G * (hs * hs)
 
 
 # ------------------------------------------------------- stokes drift -----
@@ -143,3 +159,44 @@ def verticaldiffusivity_stepfunction(depth, MLD=20.0, k_above=0.1,
                                      k_below=0.02):
     """(reference physics_methods.py:251-257)."""
     return torch.where(torch.abs(depth) > MLD, k_below, k_above)
+
+
+# ------------------------------------------------------------ seawater ----
+# T and S may be float32 tensors or Python floats; a tensor in gives a
+# float32 tensor out (Python constants never promote it to float64).
+
+def _sqrt(x):
+    return torch.sqrt(x) if torch.is_tensor(x) else math.sqrt(x)
+
+
+def _clamp_min(x, lo):
+    return torch.clamp_min(x, lo) if torch.is_tensor(x) else max(x, lo)
+
+
+def sea_water_density(T=10.0, S=35.0):
+    """UNESCO 1983 (Fofonoff & Millard) one-atmosphere equation of state
+    (reference physics_methods.py:574-608)."""
+    R4 = 4.8314e-04
+    DR350 = 28.106331
+    R1 = ((((6.536332e-09 * T - 1.120083e-06) * T + 1.001685e-04) * T
+           - 9.095290e-03) * T + 6.793952e-02) * T - 28.263737
+    R2 = (((5.3875e-09 * T - 8.2467e-07) * T + 7.6438e-05) * T
+          - 4.0899e-03) * T + 8.24493e-01
+    R3 = (-1.6546e-06 * T + 1.0227e-04) * T - 5.72466e-03
+    sig = R1 + (R4 * S + R3 * _sqrt(_clamp_min(S, 0.0)) + R2) * S
+    return sig + DR350 + 1000.0
+
+
+def sea_water_dynamic_viscosity(T=10.0, S=35.0):
+    """Sharqawy et al. (2010) correlation, as used by LADiM/reference
+    (reference physics_methods.py:139-178).  Returns mu [kg/m/s]."""
+    t65 = T + 64.993
+    mu_w = 4.2844e-5 + 1.0 / (0.157 * (t65 * t65) - 91.296)
+    A = 1.541 + 1.998e-2 * T - 9.52e-5 * (T * T)
+    B = 7.974 - 7.561e-2 * T + 4.724e-4 * (T * T)
+    Sr = S / 1000.0
+    return mu_w * (1.0 + A * Sr + B * (Sr * Sr))
+
+
+def sea_water_kinematic_viscosity(T=10.0, S=35.0):
+    return sea_water_dynamic_viscosity(T, S) / sea_water_density(T, S)

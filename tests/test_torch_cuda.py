@@ -63,6 +63,42 @@ def _profile(t, seed, h, at_surface, plain=False):
     return mixing.visser_mixing_profile(*args, seed, elem=t["elem"], **kw)
 
 
+OIL_ARGS = ("z", "diam", "moving", "wind", "mld", "zmin", "p_ent", "d_cand",
+            "zb", "kw", "kw2", "nu_w")
+
+
+def _oil_inputs(n, device, seed=2):
+    """The oil kernel's inputs: those of ``_inputs`` with 30% of the
+    elements at the surface, entrainment probabilities over (0, 0.3),
+    carried diameters (a third at the schema's default 0), intrusion
+    depths and the Tkalich factors."""
+    t, seed_u32, _ = _inputs(n, device, seed)
+    r = np.random.default_rng(seed + 100)
+    z = -r.uniform(0.0, 30.0, n)
+    z[r.random(n) < 0.3] = 0.0
+    diam = r.uniform(1e-5, 2e-3, n)
+    diam[r.random(n) < 0.33] = 0.0
+    rhopr = r.uniform(0.8, 0.99, n)
+    nu_w = r.uniform(1e-6, 1.8e-6, n)
+    f = {"z": z, "diam": diam, "p_ent": r.uniform(0.0, 0.3, n),
+         "d_cand": r.uniform(1e-6, 3e-3, n), "zb": r.uniform(0.0, 6.0, n),
+         "kw": 2.0 * 9.81 * (1.0 - rhopr) / (9.0 * nu_w),
+         "kw2": np.sqrt(16.0 * 9.81 * (1.0 - rhopr) / 3.0), "nu_w": nu_w}
+    for k, v in f.items():
+        t[k] = torch.as_tensor(v, dtype=torch.float32, device=device)
+    t["z"] = torch.maximum(t["z"], t["zmin"])
+    return t, seed_u32
+
+
+def _oil(t, seed, model, at_surface, keep_diam, plain=False):
+    kw = dict(ntimes=15, dt_mix=60.0, model=model, bg=1.2e-5,
+              mixing_at_surface=at_surface, keep_diam=keep_diam)
+    args = [t[k] for k in OIL_ARGS]
+    if plain:
+        return mixing.visser_mixing_oil_plain(*args, t["elem"], seed, **kw)
+    return mixing.visser_mixing_oil(*args, seed, elem=t["elem"], **kw)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -84,6 +120,43 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch, at_surface):
                        _profile(t, seed, h, at_surface, True))
     assert counts == (mixing.visser_mixing.launches,
                       mixing.visser_mixing_profile.launches)
+
+
+@pytest.mark.parametrize("keep_diam", [False, True])
+@pytest.mark.parametrize("at_surface", [False, True])
+def test_oil_wrapper_takes_the_plain_version_on_cpu(monkeypatch, at_surface,
+                                                    keep_diam):
+    def no_build():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+    monkeypatch.setattr(mixing, "load_library", no_build)
+    t, seed = _oil_inputs(3001, "cpu")
+    count = mixing.visser_mixing_oil.launches
+    for model in MODELS:
+        got = _oil(t, seed, model, at_surface, keep_diam)
+        want = _oil(t, seed, model, at_surface, keep_diam, True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        z, diam = got
+        assert torch.isfinite(z).all() and torch.isfinite(diam).all()
+        assert (z <= 0).all() and (z >= t["zmin"]).all()
+        assert torch.equal(diam, t["diam"]) == keep_diam
+        entrained = diam != t["diam"]
+        assert torch.equal(diam[entrained], t["d_cand"][entrained])
+    assert count == mixing.visser_mixing_oil.launches
+
+
+def test_oil_wrapper_checks_its_arguments():
+    t, seed = _oil_inputs(64, "cpu")
+    with pytest.raises(ValueError, match="no mixing kernel"):
+        _oil(t, seed, "constant", False, False)
+    with pytest.raises(ValueError, match="expected shape"):
+        _oil({**t, "p_ent": torch.zeros(3)}, seed, "stepfunction", False,
+             False)
+    z = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mixing.visser_mixing_oil(z, z, z, z, z, z, z, z, z, z, z, z, 0,
+                                 ntimes=2, dt_mix=60.0, model="stepfunction",
+                                 bg=1e-5, mixing_at_surface=False,
+                                 keep_diam=False)
 
 
 def test_other_devices_raise():
@@ -128,6 +201,24 @@ def test_kernels_bit_equal_to_plain_on_the_card(at_surface):
     got = _profile(t, seed, h, at_surface)
     assert mixing.visser_mixing_profile.launches == before + 1
     assert torch.equal(got, _profile(t, seed, h, at_surface, True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep_diam", [False, True])
+@pytest.mark.parametrize("at_surface", [False, True])
+def test_oil_kernel_equals_plain_on_the_card(at_surface, keep_diam):
+    """Equal by value on both outputs (+0 and -0 count as equal)."""
+    _card()
+    t, seed = _oil_inputs(100_003, "cuda")
+    for model in MODELS:
+        before = mixing.visser_mixing_oil.launches
+        z, diam = _oil(t, seed, model, at_surface, keep_diam)
+        assert mixing.visser_mixing_oil.launches == before + 1
+        pz, pdiam = _oil(t, seed, model, at_surface, keep_diam, True)
+        assert torch.equal(z, pz) and torch.equal(diam, pdiam)
+        if not at_surface:     # held at the surface, entrained from it
+            assert (z[t["z"] == 0] < 0).any()
     torch.cuda.synchronize()
 
 
@@ -183,3 +274,43 @@ def test_run_on_the_card_matches_the_cpu(model):
         d = np.abs(a - b)[~np.isnan(b)]
         assert np.median(d) <= median_atol and np.mean(
             d > outlier_atol) <= 0.02, (var, d.max())
+
+
+@pytest.mark.gpu
+def test_openoil_run_on_the_card_goes_through_the_oil_kernel():
+    _card()
+    from opendrift_tpu_torch.models import OpenOil
+    from opendrift_tpu_torch.fields import ConstantReader
+    results = {}
+    for device in ("cuda", "cpu"):
+        o = OpenOil(loglevel=40, device=device)
+        o.add_reader(ConstantReader({
+            "x_wind": 11.0, "y_wind": 2.0, "x_sea_water_velocity": 0.1,
+            "y_sea_water_velocity": 0.0,
+            "sea_floor_depth_below_sea_level": 60.0}))
+        o.set_config("environment:fallback:land_binary_mask", 0)
+        o.seed_elements(lon=4.0, lat=60.0, number=512, radius=500,
+                        time=datetime(2020, 1, 1), m3_per_hour=10.0)
+        before = (mixing.visser_mixing_oil.launches,
+                  mixing.visser_mixing.launches)
+        o.run(duration=timedelta(hours=2), time_step=900,
+              time_step_output=3600)
+        after = (mixing.visser_mixing_oil.launches,
+                 mixing.visser_mixing.launches)
+        steps = 8 if device == "cuda" else 0
+        assert after == (before[0] + steps, before[1])
+        results[device] = o
+    card, cpu = results["cuda"], results["cpu"]
+    assert card.state.data["mass_components"].device.type == "cuda"
+    assert card.state.data["mass_components"].dtype == torch.float32
+    np.testing.assert_array_equal(card.result["status"].values,
+                                  cpu.result["status"].values)
+    for var, atol in (("mass_oil", 1e-3), ("mass_evaporated", 1e-3),
+                      ("mass_dispersed", 1e-3), ("water_fraction", 1e-5)):
+        np.testing.assert_allclose(card.result[var].values,
+                                   cpu.result[var].values, rtol=1e-4,
+                                   atol=atol, err_msg=var)
+    z_card = np.asarray(card.result["z"].values, np.float64)
+    z_cpu = np.asarray(cpu.result["z"].values, np.float64)
+    assert np.mean(np.abs(z_card - z_cpu) > 0.1) <= 0.05
+    assert (z_card[:, -1] < 0).any()

@@ -155,6 +155,111 @@ def test_matches_reference_golden(name):
     assert stats["final_mean_m"] < final_tol, stats
 
 
+def _default_diffusivity_run(pkg):
+    if pkg == "jax":
+        from opendrift_tpu.models import OceanDrift
+        from opendrift_tpu.fields import ConstantReader
+        o = OceanDrift(loglevel=40)
+    else:
+        from opendrift_tpu_torch.models import OceanDrift
+        from opendrift_tpu_torch.fields import ConstantReader
+        o = OceanDrift(loglevel=40, device="cpu")
+    o.add_reader(ConstantReader({"x_wind": 8.0, "y_wind": 3.0,
+                                "x_sea_water_velocity": 0.1,
+                                "y_sea_water_velocity": 0.0,
+                                "sea_floor_depth_below_sea_level": 80.0}))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("drift:vertical_mixing", True)
+    o.seed_elements(lon=4.0, lat=60.0, number=56, z=-5.0, time=T0)
+    o.run(steps=4, time_step=900)
+    return o
+
+
+def test_default_diffusivity_model_runs_and_matches_jax():
+    """The default ``vertical_mixing:diffusivitymodel`` is 'environment'.
+    With no reader serving the diffusivity its profile is listed as
+    required but nothing reads it: the step switches to
+    windspeed_Large1994, as the JAX package's does."""
+    ot = _default_diffusivity_run("torch")
+    assert ot.get_config("vertical_mixing:diffusivitymodel") == "environment"
+    assert ot.required_profiles() == ["ocean_vertical_diffusivity"]
+    oj = _default_diffusivity_run("jax")
+    z = ot.result["z"].values
+    assert z.shape == (56, 5) and len(np.unique(z[:, -1])) > 40
+    _assert_close(z, oj.result["z"].values, "z")
+    for var in ("lon", "lat"):
+        _assert_close(ot.result[var].values, oj.result[var].values, var)
+
+
+def test_reader_served_profiles_still_raise():
+    """A reader that serves the diffusivity needs ``sample_profiles``,
+    which is not ported: the run says so before its first step."""
+    from opendrift_tpu_torch.models import OceanDrift
+    from opendrift_tpu_torch.fields import ConstantReader
+    o = OceanDrift(loglevel=40, device="cpu")
+    o.add_reader(ConstantReader({"ocean_vertical_diffusivity": 0.01}))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("drift:vertical_mixing", True)
+    o.seed_elements(lon=4.0, lat=60.0, number=8, z=-5.0, time=T0)
+    with pytest.raises(NotImplementedError, match="A.3"):
+        o.run(steps=2, time_step=900)
+
+
+def _stranding_run(pkg, action):
+    """An eastward current carries elements onto a reader-served coast."""
+    nx, ny, nt = 40, 30, 3
+    x = np.linspace(3.0, 5.0, nx)
+    y = np.linspace(59.0, 60.5, ny)
+    times = [T0 + timedelta(hours=6 * i) for i in range(nt)]
+    r = np.random.default_rng(7)
+    land = np.zeros((ny, nx), np.float32)
+    land[:, 26:] = 1.0
+    land[10:14, 22:] = 1.0          # a headland
+    data = {"x_sea_water_velocity": (0.6 + 0.05 * r.standard_normal(
+                (nt, ny, nx))).astype(np.float32),
+            "y_sea_water_velocity": (0.1 * r.standard_normal(
+                (nt, ny, nx))).astype(np.float32),
+            "land_binary_mask": land}
+    if pkg == "jax":
+        from opendrift_tpu.models import OceanDrift
+        from opendrift_tpu.fields import ArrayReader
+        o = OceanDrift(loglevel=40)
+    else:
+        from opendrift_tpu_torch.models import OceanDrift
+        from opendrift_tpu_torch.fields import ArrayReader
+        o = OceanDrift(loglevel=40, device="cpu")
+    o.add_reader(ArrayReader(data, x, y, times))
+    o.set_config("general:coastline_action", action)
+    # some start on land and are moved to the nearest ocean cell first
+    o.seed_elements(lon=r.uniform(3.8, 4.45, N), lat=r.uniform(59.2, 60.3, N),
+                    time=T0)
+    o.run(duration=timedelta(hours=8), time_step=1800,
+          time_step_output=3600)
+    return o
+
+
+@pytest.mark.parametrize("action", ["stranding", "previous"])
+def test_reader_served_landmask_run_matches_jax(action):
+    """The coastline code on a landmask that a reader serves: relocation of
+    land-seeded elements, stranding at the first land point of the last
+    transect (or stepping back), against the JAX package."""
+    oj = _stranding_run("jax", action)
+    ot = _stranding_run("torch", action)
+    for sj, st in zip(oj._seedings, ot._seedings):
+        np.testing.assert_array_equal(st["lon"], sj["lon"])
+        np.testing.assert_array_equal(st["lat"], sj["lat"])
+    status = ot.result["status"].values
+    np.testing.assert_array_equal(status,
+                                  np.asarray(oj.result["status"].values))
+    stranded = status[:, -1] == ot.status_categories.index("stranded")
+    if action == "stranding":
+        assert 10 < stranded.sum() < N
+    else:
+        assert not stranded.any()
+    for var in ("lon", "lat"):
+        _assert_close(ot.result[var].values, oj.result[var].values, var)
+
+
 def test_interop_round_trips():
     r = np.random.default_rng(2)
     arrays = {"lon": r.random(16).astype(np.float32),
