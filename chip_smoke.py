@@ -8,11 +8,14 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, each
 printing its own line:
 
 1. device: the card's name and power limit, and the build of the CUDA
-   kernels (``nvcc`` from ``opendrift_tpu_torch/csrc``);
+   kernels (one ``nvcc`` per source of ``opendrift_tpu_torch/csrc``, both
+   started together);
 2. kernels: each hand-written kernel (the windspeed, profile and oil
-   mixing kernels) against its plain PyTorch version on the card, at the
-   main path's shapes (2M elements, 15 substeps), with its time, the plain
-   version's time and its bound;
+   mixing kernels, and the two row-gather kernels) against its plain
+   PyTorch version on the card, at the main path's shapes (2M elements,
+   15 substeps; 2M row indices), with its time, the plain version's time,
+   its bound and, for the gathers, the one library call that computes the
+   same function (``index_select``, which is also their plain version);
 3. main path: ``OceanDrift(device="cuda")`` on a synthetic 3D z-level
    ``ArrayReader``, 2M elements, RK4 + Visser mixing (windspeed_Large1994,
    through the windspeed kernel), then a shorter run with the 'constant'
@@ -28,8 +31,29 @@ printing its own line:
    the windspeed kernel not at all, the mass budget closes, some oil is
    submerged, evaporated and stranded, no NaN where an element is valid;
    one interval is profiled;
-5. card against CPU: the same small OceanDrift and OpenOil configurations
-   on ``cuda`` and on ``cpu`` from one seed, held to the slice tolerance.
+5. sampler path: ``OceanDrift(device="cuda")`` on the same ocean with a 3D
+   ``ocean_vertical_diffusivity`` and the coast, 2M elements, RK4 on one
+   corner block a step (``drift:advection_single_fetch``), 'block'
+   coastline bisection, 'environment' diffusivity through the profile
+   kernel on reader-served profiles, the next window packed on the
+   prefetch thread.  Checked: the profile kernel launched once a step and
+   the windspeed kernel never, one corner-block gather a step, stranding,
+   no NaN where an element is valid; one interval is profiled and
+   ``get_profiles`` is timed;
+   then the OceanDrift main path with and without the prefetch thread;
+6. tiers and storages: one interval each on the 'x' tier (by the
+   OPENDRIFT_XY_PAIR override, and by the budget) and the 'none' tier (the
+   same field on grids refined until the table leaves the budget) and
+   with ``packed_dtype`` 'float16x2' and 'float16', each held against the
+   float32 'xyz' run of the same seed;
+7. gather A/B: ``tools.gather_ab.run_ab`` on the tool's default table, on
+   one that fits shared memory and on the sampler path's real tables and
+   row indices (the run that counts the gather kernels' launches);
+8. generic loop: one interval of OpenOil with ``TSprofiles`` and one of
+   OceanDrift with ``use_pallas=False``;
+9. card against CPU: the same small OceanDrift, OpenOil and sampler-path
+   configurations on ``cuda`` and on ``cpu`` from one seed, held to the
+   slice tolerance.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -102,6 +126,25 @@ OIL_OUTLIER_ATOL = {"lon": 1e-3, "lat": 1e-3, "z": 0.1, "mass_oil": 1e-3,
 OIL_OUTLIER_SHARE = 0.05
 OIL_STATUS_SHARE = 0.01
 MASS_BUDGET_RTOL = 1e-3
+# The row tiers against 'xyz': the same rows blended in another order (z
+# before or after x/y), so the slice tolerance.  'float16x2' against
+# float32: the fields are off by 2^-21 of a column's scale, a current of
+# 0.5 m/s by 2.4e-7 m/s, 2 mm over the interval's 9000 s or 4e-8 degrees:
+# under the float32 noise the slice tolerance already allows, so the slice
+# tolerance.  'float16' against float32: the fields are off by up to 2^-11
+# (5e-4: the 1e-3 of float16's spacing, rounded to nearest), a current of
+# 0.5 m/s by 2.4e-4 m/s, 2.2 m over 9000 s: 4e-5 degrees of longitude at 59 N;
+# a diffusivity off by 5e-4 moves each of 150 mixing kicks of up to 2.7 m
+# by up to 7e-4 m, a random sum of about 1e-2 m, and the float16 seafloor
+# (300 m) is off by up to 0.15 m for an element resting on it.  Outliers:
+# elements that crossed a nearest-level boundary of the mixing or a coast
+# cell on one side only.
+STORAGE_BOUNDS = {         # storage: ({var: median atol}, {var: outlier atol})
+    "float16x2": (SLICE_MEDIAN_ATOL, SLICE_OUTLIER_ATOL),
+    "float16": ({"lon": 1e-4, "lat": 1e-4, "z": 0.05},
+                {"lon": 1e-3, "lat": 1e-3, "z": 1.0})}
+STORAGE_OUTLIER_SHARE = 0.02
+STORAGE_STATUS_SHARE = 1e-3
 
 
 def log(phase, **fields):
@@ -378,6 +421,92 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bytes": nbytes, "ops": nops}
         log("kernel_time", **rows[name])
+    return rows
+
+
+def gather_row(name, line, ms, plain_ms, bound, err):
+    """A row-gather kernel's row of the result line.  Its bound is bytes:
+    the indices and each distinct row (in whole 32-byte sectors) read once,
+    the output written once; a gather does no arithmetic.  The plain
+    version and the library call are one and the same ``index_select``."""
+    return {"name": name, "route": "cuda",
+            "source": "opendrift_tpu_torch/csrc/row_gather.cu",
+            "replaces": f"tools/gather_ab.py:{line}", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["total"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": plain_ms,
+            "bytes": bound["total"], "ops": 0}
+
+
+def check_gather_kernels(device, n=2_000_000, timed=True):
+    """Both row-gather kernels against ``gather_rows_plain`` on ``device``,
+    bit for bit: (a) the A/B tool's default table (the shared-memory
+    kernel must refuse it), (b) a table that fits shared memory, (c) a
+    float16 table, 10-byte rows and row widths that are no multiple of 16
+    bytes (88: 8-byte copies, 92: 4-byte copies), (d) the ragged tail and
+    out-of-range indices.  Returns the two
+    rows of the result line: the cp.async kernel at (a), the shared-memory
+    kernel at (b)."""
+    import torch
+    from opendrift_tpu_torch.ops import gather
+    from opendrift_tpu_torch.tools import gather_ab
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    r = np.random.default_rng(0)
+    small = max(n // 1000, 8)
+    cases = [("default", 125 * small, 24, n, np.float32, np.int32),
+             ("fits_smem", small, 24, n, np.float32, np.int32),
+             ("float16", small, 48, n // 4, np.float16, np.int64),
+             ("rows_10B", small, 5, n // 4, np.float16, np.int32),
+             ("rows_88B", 125 * small, 22, n // 4, np.float32, np.int64),
+             ("rows_92B", 125 * small, 23, n // 4, np.float32, np.int32),
+             ("ragged", 40 * small, 88, n + 3, np.float32, np.int64)]
+    rows = {}
+    for label, R, C, N, dtype, itype in cases:
+        table = r.normal(size=(R, C)).astype(dtype)
+        table[0, 0] = np.nan
+        table[1, 0] = -0.0
+        lo, hi = (-3, R + 3) if label == "ragged" else (0, R - 1)
+        packed = torch.as_tensor(table, device=device)
+        idx = torch.as_tensor(r.integers(lo, hi, N).astype(itype),
+                              device=device)
+        want = gather.gather_rows_plain(packed, idx)
+        got = gather.gather_rows_async(packed, idx)
+        sync()
+        equal = {"gather_rows_async": gather_ab.bit_equal(got, want)}
+        fits = R * C * table.itemsize <= gather.SMEM_TABLE_MAX_BYTES
+        if fits:
+            got = gather.gather_rows_smem(packed, idx)
+            sync()
+            equal["gather_rows_smem"] = gather_ab.bit_equal(got, want)
+        else:
+            try:
+                gather.gather_rows_smem(packed, idx)
+            except ValueError as e:
+                refused = str(e)
+            else:
+                raise AssertionError("gather_rows_smem took a table beyond "
+                                     "shared memory")
+        log("kernel_check", kernel="row_gather", case=label, table=[R, C],
+            dtype=np.dtype(dtype).name, indices=N,
+            index_dtype=np.dtype(itype).name, bit_equal=equal,
+            smem=("launched" if fits else f"refused: {refused}"))
+        if not all(equal.values()):
+            raise AssertionError(f"row gather {label}: {equal}")
+        if not timed:
+            continue
+        bound = gather.gather_bound_bytes(packed, idx)
+        plain_ms = cuda_ms(lambda: gather.gather_rows_plain(packed, idx))
+        for name, fn, line in (
+                ("gather_rows_async", gather.gather_rows_async, 94),
+                ("gather_rows_smem", gather.gather_rows_smem, 133)):
+            if name == "gather_rows_smem" and not fits:
+                continue
+            ms = cuda_ms(lambda: fn(packed, idx))
+            row = gather_row(name, line, ms, plain_ms, bound, 0.0)
+            log("kernel_time", case=label, **row)
+            if (name, label) in (("gather_rows_async", "default"),
+                                 ("gather_rows_smem", "fits_smem")):
+                rows[name] = row
     return rows
 
 
@@ -708,6 +837,415 @@ def oil_path():
     return launches, stats
 
 
+# ------------------------------------------------- the sampler path -------
+
+UV = ("x_sea_water_velocity", "y_sea_water_velocity")
+
+
+def refine_x(a, factor, nearest=False):
+    """``a`` (..., nx) on a grid ``factor`` times finer in x: linear between
+    the nodes (so that a bilinear sample of the fine grid equals one of the
+    coarse grid, but for rounding), or the nearest node's value for a mask
+    (no ties for an odd factor)."""
+    if factor == 1:
+        return a
+    nx = a.shape[-1]
+    pos = np.arange(factor * (nx - 1) + 1, dtype=np.float64) / factor
+    if nearest:
+        return a[..., np.round(pos).astype(np.int64)]
+    i0 = np.minimum(np.floor(pos).astype(np.int64), nx - 2)
+    w = (pos - i0).astype(np.float32)
+    return a[..., i0] * (np.float32(1.0) - w) + a[..., i0 + 1] * w
+
+
+def sampler_forcing(refine=1, **kw):
+    """The ocean of :func:`oil_forcing` as the sampler path reads it: 3D
+    currents, a 3D ``ocean_vertical_diffusivity`` that falls with depth,
+    the seafloor and the coast in one reader (11 columns a cell with three
+    frames a window: the 200 x 200 x 16 grid takes the 'xyz' tier), and the
+    wind.  ``refine``: an odd factor by which the ocean's grid is refined
+    in x, the field staying the same."""
+    current, wind, _, x, y, depths, times = oil_forcing(**kw)
+    nt, nz, ny, nx = current["x_sea_water_velocity"].shape
+    X, Y = np.meshgrid(np.linspace(0, 2 * np.pi, nx),
+                       np.linspace(0, 2 * np.pi, ny))
+    K = (1e-2 * np.exp(-depths / 20.0)[None, :, None, None]
+         * (1.0 + 0.5 * np.sin(X + 0.3 * np.arange(nt)[:, None, None, None])
+            * np.cos(Y)))
+    ocean = {"x_sea_water_velocity": current["x_sea_water_velocity"],
+             "y_sea_water_velocity": current["y_sea_water_velocity"],
+             "ocean_vertical_diffusivity": K.astype(np.float32),
+             "sea_floor_depth_below_sea_level":
+                 current["sea_floor_depth_below_sea_level"],
+             "land_binary_mask": current["land_binary_mask"]}
+    ocean = {k: refine_x(v, refine, nearest=k == "land_binary_mask")
+             for k, v in ocean.items()}
+    x_ocean = np.linspace(x[0], x[-1], refine * (nx - 1) + 1)
+    return ocean, wind, x_ocean, x, y, depths, times
+
+
+def sampler_simulation(device, n, single_fetch=True, packed_dtype=None,
+                       refine=1, seed=0, forcing_kw=None):
+    """An OceanDrift run of ``n`` elements over :func:`sampler_forcing`, as
+    a user of a 3D ocean model with its own diffusivity sets it up: RK4 on
+    one corner block a step, the coast's bisection on the same block,
+    'environment' mixing on reader-served profiles (26 levels to 50 m, the
+    defaults), dt = 900 s with 60 s substeps, elements seeded over the top
+    20 m from mid-basin to the coast.  Every seed lies in the ocean, so the
+    relocation of land seeds is switched off."""
+    from opendrift_tpu_torch.models.oceandrift import OceanDrift
+    from opendrift_tpu_torch.fields import ArrayReader
+    ocean, wind, x_ocean, x, y, depths, times = sampler_forcing(
+        refine, **(forcing_kw or {}))
+    o = OceanDrift(loglevel=40, device=device, seed=seed)
+    reader = ArrayReader(ocean, x_ocean, y, times, depths=depths,
+                         name="ocean")
+    if packed_dtype is not None:
+        reader.packed_dtype = packed_dtype
+    o.add_reader(reader)
+    o.add_reader(ArrayReader(wind, x, y, times, name="wind"))
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:advection_single_fetch", single_fetch)
+    o.set_config("general:coastline_bisection", "block")
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "environment")
+    o.set_config("vertical_mixing:timestep", 60.0)
+    o.set_config("drift:horizontal_diffusivity", 10.0)
+    o.set_config("seed:ocean_only", False)
+    nx = len(x)
+    coast = nx - max(2, COAST_CELLS * nx // 200)
+    r = np.random.default_rng(seed + 1)
+    lon1 = float(x[coast] - 0.6 * (x[1] - x[0]))   # the last ocean half-cell
+    o.seed_elements(lon=r.uniform(float(x[nx // 2]), lon1, n),
+                    lat=r.uniform(float(y[len(y) // 4]),
+                                  float(y[3 * len(y) // 4]), n),
+                    z=-r.uniform(0.0, 20.0, n), time=times[0])
+    return o
+
+
+def run_sampler(o, intervals):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+          time_step_output=9000,
+          export_variables=["lon", "lat", "z", "status"])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def check_sampler_result(o, n, frames):
+    """Shapes, no NaN where an element is valid, nothing above the surface;
+    returns the stranded and active shares."""
+    from opendrift_tpu_torch.export.io_netcdf import valid_mask
+    status = np.asarray(o.result["status"].values)
+    assert status.shape == (n, frames), status.shape
+    valid = valid_mask(status, 0)
+    for var in ("lon", "lat", "z"):
+        vals = np.asarray(o.result[var].values)
+        assert np.isfinite(vals[valid]).all(), f"non-finite {var}"
+    assert float(np.nanmax(np.asarray(o.result["z"].values))) <= 0.0
+    stranded = o.status_categories.index("stranded")
+    return {"stranded_share": float((status[:, -1] == stranded).mean()),
+            "active_share": float((status[:, -1] == 0).mean())}
+
+
+def run_stats(o, n, steps, secs):
+    readers_s = o.timers.get("main loop:readers", 0.0)
+    loop_s = o.timers["main loop"]
+    return {"elements": n, "steps": steps, "run_s": secs,
+            "preparing_s": o.timers.get("preparing main loop", 0.0),
+            "main_loop_s": loop_s, "readers_s": readers_s,
+            "reader_share_of_loop": readers_s / loop_s,
+            "particle_steps_per_s": n * steps / secs,
+            "particle_steps_per_s_steps_only":
+                n * steps / (loop_s - readers_s)}
+
+
+def count_row_gathers(o, steps=4):
+    """Row gathers of one short interval of ``o`` by table width, per
+    step: the sampler's ``take_rows`` is wrapped for the count and put
+    back."""
+    from opendrift_tpu_torch.fields import grid
+    from opendrift_tpu_torch.ops import interp
+    calls = {}
+    real = interp.take_rows
+
+    def counted(packed, lin):
+        width = int(packed.shape[-1])
+        calls[width] = calls.get(width, 0) + 1
+        return real(packed, lin)
+    advance, _, state, key = o.prepare_run(900.0, steps, total_steps=steps)
+    dev_states = o.env.build_device_states()
+    interp.take_rows = grid.take_rows = counted
+    try:
+        advance(state, dev_states, np.float32(0.0), key)
+    finally:
+        interp.take_rows = grid.take_rows = real
+    return {width: count / steps for width, count in sorted(calls.items())}
+
+
+def time_get_profiles(o):
+    """Milliseconds of one ``get_profiles`` call at the run's final
+    positions (CUDA events)."""
+    dev_states = o.env.build_device_states()
+    d = o.state.data
+    zlevels = o._profile_zlevels()
+    return cuda_ms(lambda: o.env.get_profiles(
+        dev_states, o.env.required_profiles, np.float32(0.0), d["lon"],
+        d["lat"], zlevels), warmup=1, reps=5), len(zlevels)
+
+
+def sampler_path(n=2_000_000, intervals=3):
+    """The sampler path at full width; returns (the simulation, launches
+    of the profile kernel, the run's numbers)."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    o = sampler_simulation("cuda", n)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs = run_sampler(o, intervals)
+    launches = mixing.visser_mixing_profile.launches
+    steps = 10 * intervals
+    assert launches == steps, f"{launches} K2 launches in {steps} steps"
+    assert mixing.visser_mixing.launches == 0, "the sampler path launched K1"
+    checks = check_sampler_result(o, n, intervals + 1)
+    assert checks["stranded_share"] > 0.0, "nothing stranded"
+    tiers = {name: r._sampler.pair_mode for name, r in o.env.readers.items()}
+    assert tiers == {"ocean": "xyz", "wind": "xy"}, tiers
+    assert o.env.uv_block_plan_index() == 0
+    stats = run_stats(o, n, steps, secs)
+    env = o.env
+    hidden = env.prefetched_pack_seconds - env.join_wait_seconds
+    log("sampler_path", tiers=tiers, launches=launches,
+        windspeed_launches=mixing.visser_mixing.launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        pack_s=env.pack_seconds,
+        prefetched_pack_s=env.prefetched_pack_seconds,
+        join_wait_s=env.join_wait_seconds,
+        packing_hidden_share=hidden / env.pack_seconds, **checks, **stats)
+    # one corner block a step: row gathers per step by table width, against
+    # the same configuration with a refetch at every RK stage
+    small = 200_000
+    single = count_row_gathers(sampler_simulation("cuda", small))
+    multi = count_row_gathers(sampler_simulation("cuda", small,
+                                                 single_fetch=False))
+    levels = PROFILE_LEVELS
+    log("row_gathers_per_step", single_fetch=single, multi_fetch=multi,
+        profile_levels=levels, widths={"ocean": 88, "ocean_uv": 48,
+                                       "wind": 24})
+    assert single == {24: 1.0, 88: 1.0 + levels}, single
+    assert multi[48] == 3.0 and multi[24] == 1.0 \
+        and multi[88] >= 1.0 + levels, multi
+    profile_interval(o, phase="sampler_profile")
+    ms, levels = time_get_profiles(o)
+    step_ms = (stats["main_loop_s"] - stats["readers_s"]) / steps * 1e3
+    log("get_profiles", ms=ms, levels=levels, step_ms=step_ms,
+        share_of_step=ms / step_ms)
+    return o, launches, stats
+
+
+def prefetch_ab(n=2_000_000, intervals=3):
+    """The OceanDrift main path with the next window packed on the worker
+    thread and with every window packed by the main thread, in turns (with,
+    without, without, with): what the thread does to the whole run and to
+    the steps, whose kernel launches share the interpreter with it."""
+    import torch
+    rows = []
+    for threaded in (True, False, False, True):
+        o = simulation("cuda", n, "windspeed_Large1994", hdiff=10.0)
+        if not threaded:
+            o.env.prefetch_device_states = lambda start, end: None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+              time_step_output=9000,
+              export_variables=["lon", "lat", "z", "status"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        rows.append(dict(prefetch_thread=threaded,
+                         pack_s=o.env.pack_seconds,
+                         prefetched_pack_s=o.env.prefetched_pack_seconds,
+                         join_wait_s=o.env.join_wait_seconds,
+                         **run_stats(o, n, 10 * intervals, secs)))
+        del o
+    log("prefetch_ab", runs=rows)
+    return rows
+
+
+# -------------------------------------------- tiers and storages ----------
+
+def final_frame(o):
+    return {v: np.asarray(o.result[v].values)[:, -1]
+            for v in ("lon", "lat", "z", "status")}
+
+
+def hold_against(name, got, want, median, outlier, share, status_share):
+    status_diff = float(np.mean(got["status"] != want["status"]))
+    if status_diff > status_share:
+        raise AssertionError(f"{name}: {status_diff} of the elements differ "
+                             "in status from the float32 'xyz' run")
+    errs = {}
+    for var in ("lon", "lat", "z"):
+        err, ok = agree(got[var], want[var], median[var], outlier[var],
+                        share, nan_share=status_share)
+        errs[var] = err
+        if not ok:
+            raise AssertionError(f"{name} disagrees with the float32 'xyz' "
+                                 f"run on {var}: {err}")
+    return status_diff, errs
+
+
+def tiers_and_storages(n=2_000_000):
+    """One interval of 10 steps on each further row tier and storage, held
+    against the float32 'xyz' run of the same seed.
+
+    'x' twice.  Once on the same grid, chosen with OPENDRIFT_XY_PAIR=0
+    (the JAX package's override), on one corner block a step like the
+    'xyz' run it is held against.  Once as the budget chooses it: the ocean
+    refined 3 times in x (119,600 cells a level, 84 MB of base rows: only
+    x 2 stays under the 256 MB budget); 'none' from 5 times (199,200 cells,
+    140 MB: over the budget even x 2).  A corner block clamps a stage
+    position at its cell's edge, and a finer cell clamps sooner, so the
+    refined grids are run with a refetch at every RK stage ('none' has no
+    x-paired rows and can do nothing else) and held against the 'xyz' run
+    that does the same."""
+    import os
+    runs = {}
+    cases = [("xyz", dict(), None),
+             ("xyz_multi", dict(single_fetch=False), None),
+             ("x_same_grid", dict(), "xyz"),
+             ("x", dict(refine=3, single_fetch=False), "xyz_multi"),
+             ("none", dict(refine=5, single_fetch=False), "xyz_multi"),
+             ("float16x2", dict(packed_dtype="float16x2"), "xyz"),
+             ("float16", dict(packed_dtype="float16"), "xyz")]
+    for name, kw, base in cases:
+        if name == "x_same_grid":
+            os.environ["OPENDRIFT_XY_PAIR"] = "0"
+        try:
+            o = sampler_simulation("cuda", n, **kw)
+            secs = run_sampler(o, 1)
+            table = o.env.build_device_states()[0]["packed"]
+        finally:
+            os.environ.pop("OPENDRIFT_XY_PAIR", None)
+        check_sampler_result(o, n, 2)
+        tier = o.env.readers["ocean"]._sampler.pair_mode
+        data = getattr(table, "data", table)
+        runs[name] = final_frame(o)
+        line = dict(case=name, tier=tier, storage=type(table).__name__,
+                    dtype=str(data.dtype), rows=int(data.shape[0]),
+                    table_bytes=int(data.numel() * data.element_size()),
+                    single_fetch=kw.get("single_fetch", True),
+                    held_against=base, **run_stats(o, n, 10, secs))
+        want_tier = {"x_same_grid": "x", "x": "x", "none": "none"}.get(
+            name, "xyz")
+        assert tier == want_tier, (name, tier)
+        assert (o.env.uv_block_plan_index() is not None) == (tier != "none")
+        del o, table, data
+        if base is None:
+            log("tier_storage", **line)
+            continue
+        median, outlier = STORAGE_BOUNDS.get(
+            name, (SLICE_MEDIAN_ATOL, SLICE_OUTLIER_ATOL))
+        status_diff, errs = hold_against(
+            name, runs[name], runs[base], median, outlier,
+            STORAGE_OUTLIER_SHARE, STORAGE_STATUS_SHARE)
+        log("tier_storage", status_diff_share=status_diff, max_abs_err=errs,
+            median_atol=median, outlier_atol=outlier, **line)
+    return runs
+
+
+# ------------------------------------------------- gather A/B -------------
+
+def real_tables(o):
+    """(label, table, row indices) of the sampler path's last window at the
+    elements' final positions: the ocean reader's table and its u/v
+    companion at the trilinear cell, the wind reader's at the bilinear
+    cell: what ``take_rows`` is given in the step."""
+    import torch
+    from opendrift_tpu_torch.ops import interp
+    steps = o.steps_calculation
+    start = o.start_time + timedelta(seconds=900 * (steps - 10))
+    states = o.env.build_device_states(start,
+                                       start + timedelta(seconds=9000))
+    d = o.state.data
+    out = []
+    for (reader, _), state in zip(o.env._plan, states):
+        s = reader._sampler
+        xi, yi = reader._grid_indices(d["lon"], d["lat"])
+        x0, y0, _, _ = interp._xy_cell(xi, yi, s.X, s.Y)
+        z0, _ = interp._z_bracket(torch.clamp_min(-d["z"], 0.0),
+                                  state["depths"], s.Z, x0)
+        lin = s._lin(z0, y0, x0, 0).contiguous()
+        out.append((reader.name, state["packed"], lin))
+        if "packed_uv" in state:
+            out.append((reader.name + "_uv", state["packed_uv"], lin))
+    return out
+
+
+def gather_ab_phase(o):
+    """The gather kernels' main path: the A/B entry point on the tool's
+    default inputs, on a table that fits shared memory, and on the real
+    tables.  Returns the launches of (async, smem) over it."""
+    from opendrift_tpu_torch.ops import gather
+    from opendrift_tpu_torch.tools import gather_ab
+    tables = real_tables(o)
+    gather.gather_rows_async.launches = 0
+    gather.gather_rows_smem.launches = 0
+    jobs = [("tool_default", *gather_ab.default_inputs(
+                250_000, 24, 2_000_000, "cuda")),
+            ("fits_smem", *gather_ab.default_inputs(
+                2_000, 24, 2_000_000, "cuda"))]
+    jobs += [(label, table, lin, None) for label, table, lin in tables]
+    for label, table, idx, fx in jobs:
+        res = gather_ab.run_ab(table, idx, fx, out=lambda line: None)
+        log("gather_ab", table=label, shape=list(table.shape),
+            dtype=str(table.dtype), index_dtype=str(idx.dtype),
+            indices=int(idx.shape[0]), results=res)
+    return (gather.gather_rows_async.launches,
+            gather.gather_rows_smem.launches)
+
+
+# ------------------------------------------------- generic loop -----------
+
+def generic_loop_phase(n=2_000_000):
+    """The per-substep mixing loop on the card: one interval of OpenOil
+    with T/S profiles (``surface_wave_mixing``, the rise velocity at the
+    profiles' T and S) and one of OceanDrift with
+    ``vertical_mixing:use_pallas=False``; neither may launch a mixing
+    kernel."""
+    from opendrift_tpu_torch.ops import mixing
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    for k in kernels:
+        k.launches = 0
+    o = oil_simulation("cuda", n, "windspeed_Large1994")
+    o.set_config("vertical_mixing:TSprofiles", True)
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=9000), time_step=900,
+          time_step_output=9000, export_variables=OIL_EXPORT)
+    secs = time.perf_counter() - t
+    checks = check_oil_result(o, n, 2)
+    log("generic_loop", model="OpenOil", TSprofiles=True,
+        **run_stats(o, n, 10, secs), **checks)
+    del o
+    o = simulation("cuda", n, "windspeed_Large1994", hdiff=10.0)
+    o.set_config("vertical_mixing:use_pallas", False)
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=9000), time_step=900,
+          time_step_output=9000,
+          export_variables=["lon", "lat", "z", "status"])
+    secs = time.perf_counter() - t
+    active = check_result(o, n, 2)
+    log("generic_loop", model="OceanDrift", use_pallas=False,
+        active_share=active, **run_stats(o, n, 10, secs))
+    launched = {k.__name__: k.launches for k in kernels}
+    assert not any(launched.values()), launched
+
+
 # ------------------------------------------------------------- phase 5 ----
 
 def oil_card_against_cpu(n=4096, intervals=2):
@@ -764,6 +1302,25 @@ def card_against_cpu(n=4096, intervals=2):
     return errs
 
 
+def sampler_card_against_cpu(n=4096, intervals=2):
+    """The sampler path's configuration, small, on the card and on the
+    CPU from one seed (a status may differ where an ulp decides a
+    stranding)."""
+    out = {}
+    small = dict(nx=60, ny=60, nz=16, nt=5)
+    for device in ("cuda", "cpu"):
+        o = sampler_simulation(device, n, forcing_kw=small)
+        o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+              time_step_output=9000)
+        out[device] = final_frame(o)
+    status_diff, errs = hold_against(
+        "card", out["cuda"], out["cpu"], SLICE_MEDIAN_ATOL,
+        SLICE_OUTLIER_ATOL, SLICE_OUTLIER_SHARE, STORAGE_STATUS_SHARE)
+    log("sampler_card_vs_cpu", elements=n, intervals=intervals,
+        status_diff_share=status_diff, max_abs_err=errs)
+    return errs
+
+
 # ---------------------------------------------------------------- main ----
 
 def main():
@@ -772,32 +1329,59 @@ def main():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 1
-    from opendrift_tpu_torch.ops import mixing
+    from concurrent.futures import ThreadPoolExecutor
+    from opendrift_tpu_torch.ops import gather, mixing
 
     kind = torch.cuda.get_device_name(0)
     power = power_line()
     t = time.perf_counter()
-    mixing.load_library()
+    # one nvcc per source, both started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for built in [pool.submit(mixing.load_library),
+                      pool.submit(gather.load_library)]:
+            built.result()
+
+    def ptxas(report):
+        return [line.strip() for line in (report or "").splitlines()
+                if "registers" in line or "spill" in line]
     log("device", kind=kind, count=torch.cuda.device_count(),
         nvidia_smi=power, torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0],
         build_s=time.perf_counter() - t, nvcc_flags=mixing.NVCC_FLAGS,
-        ptxas=[line.strip() for line in (mixing.build_log or "").splitlines()
-               if "registers" in line or "spill" in line])
+        gather_nvcc_flags=gather.NVCC_FLAGS, ptxas=ptxas(mixing.build_log),
+        gather_ptxas=ptxas(gather.build_log))
 
     rows = check_kernels("cuda")
     rows["visser_mixing_oil"] = check_oil_kernel("cuda")
+    rows.update(check_gather_kernels("cuda"))
     launches, stats = main_path()
     launches["visser_mixing_oil"], oil_stats = oil_path()
-    for name, count in launches.items():
-        rows[name]["launches"] = count
     for name, st in (("visser_mixing", stats),
                      ("visser_mixing_oil", oil_stats)):
         mixing_s = rows[name]["ms"] * 1e-3 * launches[name]
         log("mixing_share", kernel=name, mixing_s=mixing_s,
             share_of_steps=mixing_s / (st["main_loop_s"] - st["readers_s"]))
+    # the profile kernel's count is the sampler path's: reader-served
+    # profiles, once a step (its 'constant' run above is logged there)
+    o, launches["visser_mixing_profile"], sampler_stats = sampler_path()
+    mixing_s = rows["visser_mixing_profile"]["ms"] * 1e-3 \
+        * launches["visser_mixing_profile"]
+    log("mixing_share", kernel="visser_mixing_profile", mixing_s=mixing_s,
+        share_of_steps=mixing_s / (sampler_stats["main_loop_s"]
+                                   - sampler_stats["readers_s"]))
+    launches["gather_rows_async"], launches["gather_rows_smem"] = \
+        gather_ab_phase(o)
+    del o
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the main path never launched {name}")
+        rows[name]["launches"] = count
+    prefetch_ab()
+    tiers_and_storages()
+    generic_loop_phase()
     card_against_cpu()
     oil_card_against_cpu()
+    sampler_card_against_cpu()
 
     kernels = [{k: v for k, v in row.items() if k not in ("bytes", "ops")}
                for row in rows.values()]

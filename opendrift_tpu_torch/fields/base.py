@@ -147,6 +147,20 @@ class BaseReader:
     def sample(self, dev_state, varnames, t, lon, lat, z):
         raise NotImplementedError
 
+    def sample_profiles(self, dev_state, varnames, t, lon, lat, zlevels):
+        """Sample variables at the fixed ``zlevels`` for each element, by
+        default one ``sample`` per level.  Returns ({var: (L, N)},
+        covers (N,))."""
+        outs = {v: [] for v in varnames}
+        covers = None
+        for level in zlevels:
+            zvec = torch.full_like(lon, float(level))
+            vals, cov = self.sample(dev_state, varnames, t, lon, lat, zvec)
+            covers = cov if covers is None else covers
+            for v in varnames:
+                outs[v].append(vals[v])
+        return {v: torch.stack(outs[v]) for v in varnames}, covers
+
     def set_run_epoch(self, epoch):
         """Record the run's t = 0 (a datetime)."""
         self._run_epoch = epoch

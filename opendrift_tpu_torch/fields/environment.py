@@ -6,13 +6,15 @@ reader chain is a sequence of sampler calls merged with ``torch.where``
 on per-variable missing masks, ended by scalar fallbacks.  Host-side:
 registry and priority bookkeeping, failure quarantine
 (environment.py:656-674), and the per-window device states, which
-readers build as host arrays and this class copies to the device.
-
-Deferred: the background prefetch thread and ``get_profiles`` /
-``uv_block_plan_index`` (ROADMAP A.4).
+readers build as host arrays and this class copies to the device.  The
+next window's host packing can run on a worker thread beside the steps
+(``prefetch_device_states``); the copy to the device is always made by the
+thread that takes the states (``build_device_states``), on its stream.
 """
 
 import logging
+import threading
+import time
 from collections import OrderedDict
 
 import torch
@@ -37,6 +39,13 @@ class Environment:
         self.fallback_values = {}
         self.uncertainty = []
         self._plan = None
+        self._prefetch = None
+        # seconds of host packing (on either thread), the part of them
+        # spent on the prefetch thread, and seconds the caller of
+        # build_device_states waited for a prefetched window
+        self.pack_seconds = 0.0
+        self.prefetched_pack_seconds = 0.0
+        self.join_wait_seconds = 0.0
 
     # ------------------------------------------------------------- registry
     def add_reader(self, readers, variables=None, first=False):
@@ -115,27 +124,78 @@ class Environment:
                            variables=list(self.required_variables))
 
     # ----------------------------------------------------- window device IO
-    def build_device_states(self, window_start=None, window_end=None):
-        """Per-reader device states for a time window (host packing, then
-        one copy to the device), with the failure-quarantine policy."""
-        states = []
+    def _pack_host_states(self, window_start, window_end):
+        """Per plan entry the reader's host state, the exception its
+        packing raised, or None for a discarded reader; and the seconds it
+        took.  Host work only (numpy), so it may run on the worker thread:
+        it changes nothing of this object."""
+        t = time.perf_counter()
+        packed = []
         for reader, served in self._plan:
             if reader.name in self.discarded_readers:
-                states.append(None)
+                packed.append(None)
                 continue
             try:
-                host = reader.device_state(window_start, window_end)
+                packed.append(reader.device_state(window_start, window_end))
             except Exception as e:  # noqa: BLE001 — any reader error counts
+                packed.append(e)
+        return packed, time.perf_counter() - t
+
+    def prefetch_device_states(self, window_start, window_end):
+        """Start packing a window's host states on a worker thread, so that
+        the packing overlaps the steps of the window before it.  The next
+        ``build_device_states`` call for the same window joins the thread
+        and copies the states to the device itself."""
+        result = {}
+
+        def work():
+            try:
+                result["packed"] = self._pack_host_states(window_start,
+                                                          window_end)
+            except Exception as e:  # noqa: BLE001 — re-raised at the join
+                result["error"] = e
+        thread = threading.Thread(target=work, daemon=True,
+                                  name="opendrift-prefetch")
+        thread.start()
+        self._prefetch = (window_start, window_end, thread, result)
+
+    def cancel_prefetch(self):
+        """Wait for a pending prefetch and drop its result."""
+        pending, self._prefetch = self._prefetch, None
+        if pending is not None:
+            pending[2].join()
+
+    def build_device_states(self, window_start=None, window_end=None):
+        """Per-reader device states for a time window (host packing, taken
+        from the prefetch thread where it packed this window, then one copy
+        to the device), with the failure-quarantine policy."""
+        pending, self._prefetch = self._prefetch, None
+        packed = None
+        if pending is not None:
+            t = time.perf_counter()
+            pending[2].join()
+            self.join_wait_seconds += time.perf_counter() - t
+            if "error" in pending[3]:
+                raise pending[3]["error"]
+            if pending[:2] == (window_start, window_end):
+                packed, seconds = pending[3]["packed"]
+                self.prefetched_pack_seconds += seconds
+        if packed is None:
+            packed, seconds = self._pack_host_states(window_start, window_end)
+        self.pack_seconds += seconds
+        states = []
+        for (reader, served), host in zip(self._plan, packed):
+            if isinstance(host, Exception):
                 n = self.reader_fail_count.get(reader.name, 0) + 1
                 self.reader_fail_count[reader.name] = n
                 if n >= self.max_reader_fails:
                     logger.warning(
                         "Reader %s failed %d time(s) — discarding: %s",
-                        reader.name, n, e)
-                    self.discarded_readers[reader.name] = str(e)
-                states.append(None)
-                continue
-            states.append(device_state_from_numpy(host, self.device))
+                        reader.name, n, host)
+                    self.discarded_readers[reader.name] = str(host)
+                host = None
+            states.append(None if host is None
+                          else device_state_from_numpy(host, self.device))
         return tuple(states)
 
     # ------------------------------------------------------ device sampling
@@ -150,19 +210,23 @@ class Environment:
         return False
 
     def get_environment(self, dev_states, varnames, t, lon, lat, z,
-                        key=None):
+                        key=None, block_ctx=None):
         """Sample ``varnames`` at the element positions and host time
         ``t`` through the priority chains (reference
         environment.py:499-923).  ``key``: optional rng key enabling the
         configured current/wind uncertainty noise (reference
-        environment.py:865-891).  Returns (env var -> float32 tensor,
-        missing var -> bool tensor)."""
+        environment.py:865-891).  ``block_ctx``: optional (plan index,
+        corner block, covers0): that reader's variables are evaluated from
+        the gathered block, with no further gather (single-fetch RK shares
+        one block between the fetch and every stage).  Returns
+        (env var -> float32 tensor, missing var -> bool tensor)."""
         varnames = list(varnames)
         nanval = torch.full_like(lon, float("nan"))
         env = {v: nanval for v in varnames}
         missing = {v: torch.ones_like(lon, dtype=torch.bool)
                    for v in varnames}
-        for (reader, served), dev_state in zip(self._plan, dev_states):
+        for i, ((reader, served), dev_state) in enumerate(
+                zip(self._plan, dev_states)):
             if reader.name in self.discarded_readers:
                 continue
             want = [v for v in served if v in varnames
@@ -170,7 +234,13 @@ class Environment:
             if not want:
                 continue
             fetch, derived = reader.expand_derived(want)
-            vals, covers = reader.sample(dev_state, fetch, t, lon, lat, z)
+            if block_ctx is not None and i == block_ctx[0]:
+                vals, covers = reader.sample_from_block(
+                    dev_state, block_ctx[1], t, lon, lat, fetch)
+                covers = covers & block_ctx[2]
+            else:
+                vals, covers = reader.sample(dev_state, fetch, t, lon, lat,
+                                             z)
             if derived:
                 vals = reader.apply_derived(vals, derived)
             for v in want:
@@ -201,3 +271,46 @@ class Environment:
                         noise = std * rng.normal(k2, lon.shape, lon.device)
                     env[var] = env[var] + noise
         return env, missing
+
+    def uv_block_plan_index(self):
+        """Plan index of the single top-priority reader serving BOTH
+        current components through x-paired packed rows, the precondition
+        of single-fetch RK (drift:advection_single_fetch); None when the
+        configuration does not qualify."""
+        names = ("x_sea_water_velocity", "y_sea_water_velocity")
+        tops = [self.priority_list.get(v, [None])[0] for v in names]
+        if tops[0] is None or tops[0] != tops[1]:
+            return None
+        for i, (reader, served) in enumerate(self._plan or []):
+            if reader.name == tops[0]:
+                if getattr(reader, "supports_uv_block", lambda: False)():
+                    return i
+                return None
+        return None
+
+    def get_profiles(self, dev_states, varnames, t, lon, lat, zlevels):
+        """Profile variables at the fixed ``zlevels``: {var: (L, N)}."""
+        varnames = list(varnames)
+        L = len(zlevels)
+        nanval = torch.full((L,) + tuple(lon.shape), float("nan"),
+                            dtype=lon.dtype, device=lon.device)
+        env = {v: nanval for v in varnames}
+        missing = {v: torch.ones_like(lon, dtype=torch.bool)
+                   for v in varnames}
+        for (reader, served), dev_state in zip(self._plan, dev_states):
+            if reader.name in self.discarded_readers:
+                continue
+            want = [v for v in served if v in varnames]
+            if not want:
+                continue
+            vals, covers = reader.sample_profiles(dev_state, want, t, lon,
+                                                  lat, zlevels)
+            for v in want:
+                good = missing[v] & covers
+                env[v] = torch.where(good[None, :], vals[v], env[v])
+                missing[v] = missing[v] & ~good
+        for v in varnames:
+            fb = self.fallback_values.get(v, None)
+            if fb is not None:
+                env[v] = torch.where(missing[v][None, :], float(fb), env[v])
+        return env

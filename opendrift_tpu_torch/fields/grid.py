@@ -9,22 +9,29 @@ basereader/structured.py:15-628, interpolation/structured.py:12-186):
   ``ops/interp.PackedSampler`` — the same tier choice, column layout and
   neighbour packing as the JAX package, so both build equal tables.
 * Device side: ``sample`` projects positions to fractional grid indices
-  and gathers/blends rows (plain torch indexing).
+  and gathers/blends rows; ``corner_block`` gathers a cell's stencil once
+  for ``sample_from_block`` / ``uv_from_block`` to evaluate at displaced
+  positions (single-fetch RK, 'block' coastline probes);
+  ``sample_profiles`` samples fixed z-levels.
 
-Deferred to later slices: the single-fetch corner block (``corner_block``,
-``sample_from_block``) and ``sample_profiles`` (ROADMAP A.3), the 'x' and
-'none' tiers and f16 / compensated storage (A.2), ensemble members and
-domain-decomposition bands (A.14).
+Storage per reader: ``packed_dtype`` 'float32' (default), 'float16' (half
+the bytes, relative error ~1e-3) or 'float16x2' (compensated float16
+pairs, ~2^-21); ``packed_auto_compensate`` lets a reader take the
+compensated storage for large tables by itself.  Not ported yet: ensemble
+members and domain-decomposition bands (ROADMAP A.14).
 """
 
 import logging
+import os
 from datetime import timedelta
 
 import numpy as np
 import torch
 
 from .base import BaseReader, STANDARD_NAMES
-from ..ops.interp import (fill_invalid, fill_towards_seafloor, PackedSampler)
+from ..ops.interp import (fill_invalid, fill_towards_seafloor, PackedSampler,
+                          CompensatedTable, GATHER_FAST_MAX_ROWS,
+                          maybe_split_table, take_rows)
 from ..utils.xp import tnp
 
 logger = logging.getLogger(__name__)
@@ -37,6 +44,20 @@ STATIC_VARIABLES = {"land_binary_mask", "sea_floor_depth_below_sea_level"}
 # JAX package; the same number keeps the two packages' tables equal)
 ROW_BUDGET_BYTES = 256e6
 UV = ("x_sea_water_velocity", "y_sea_water_velocity")
+
+
+def choose_pair_mode(Z, ny, nx, C, want_xy):
+    """The neighbour-packing tier of a (Z, ny, nx) grid with C columns a
+    cell: the widest tier whose table stays under the row budget ('xyz'
+    and 'xy' only where the model asked for them with ``want_xy``)."""
+    base_bytes = Z * ny * nx * max(C, 1) * 4
+    if C > 0 and Z > 1 and base_bytes * 8 < ROW_BUDGET_BYTES and want_xy:
+        return "xyz"
+    if C > 0 and base_bytes * 4 < ROW_BUDGET_BYTES and want_xy:
+        return "xy"
+    if C > 0 and base_bytes * 2 < ROW_BUDGET_BYTES:
+        return "x"
+    return "none"
 
 
 class StructuredGridReader(BaseReader):
@@ -224,37 +245,67 @@ class StructuredGridReader(BaseReader):
             col_of[v] = (col, "near")
             col += 1
         C = col
-        if getattr(self, "packed_dtype", None) not in (None, "float32"):
-            raise NotImplementedError(
-                "packed_dtype other than float32 is not ported yet "
-                "(ROADMAP A.2: f16 and compensated tables)")
-        want_xy = getattr(self, "pair_hint", None) == "xy"
-        base_bytes = Z * ny * nx * max(C, 1) * 4
-        if C > 0 and Z > 1 and base_bytes * 8 < ROW_BUDGET_BYTES and want_xy:
-            pair_mode = "xyz"
-        elif C > 0 and base_bytes * 4 < ROW_BUDGET_BYTES and want_xy:
-            pair_mode = "xy"
-        elif C > 0 and base_bytes * 2 < ROW_BUDGET_BYTES:
-            pair_mode = "x"
-        else:
-            pair_mode = "none"
+        # neighbour-packing tier from the row-table budget; the model asks
+        # for the wide tiers with pair_hint='xy', and OPENDRIFT_XY_PAIR=1/0
+        # overrides the hint for standalone use (as in the JAX package)
+        env_xy = os.environ.get("OPENDRIFT_XY_PAIR")
+        want_xy = (env_xy == "1"
+                   or (env_xy != "0"
+                       and getattr(self, "pair_hint", None) == "xy"))
+        pair_mode = choose_pair_mode(Z, ny, nx, C, want_xy)
         self._sampler = PackedSampler(Z, ny, nx, F, col_of, pair_mode)
         out = {}
         if C > 0:
-            packed = self._pack(tidx, col_of, Z, C, pair_mode)
-            out["packed"] = packed.reshape(Z * ny * nx, -1)
-            if all(v in col_of for v in UV):
+            packed_all = self._pack(tidx, col_of, Z, C, pair_mode).reshape(
+                Z * ny * nx, -1)
+            dtype = getattr(self, "packed_dtype", None)
+            # a reader whose sampling is approximate anyway may opt into
+            # compensated storage for large tables; an explicit
+            # packed_dtype always wins
+            auto_comp = (dtype is None
+                         and getattr(self, "packed_auto_compensate", False))
+            dtype = dtype or "float32"
+            compensated = dtype in ("float16x2", "f16x2")
+            if compensated:
+                dtype = "float32"
+            if dtype not in ("float32", "float16"):
+                raise ValueError(
+                    f"{self.name}: packed_dtype {dtype!r} is not one of "
+                    "'float32', 'float16', 'float16x2'")
+            rows = packed_all.shape[0]
+            if pair_mode == "xyz":
+                auto_comp = False      # the JAX package's rule, kept
+            if auto_comp and rows >= GATHER_FAST_MAX_ROWS:
+                compensated = True
+                logger.info(
+                    "Packed table of reader %s has %d rows, at or beyond "
+                    "the JAX package's threshold of 2^15; using compensated "
+                    "float16-pair storage (~2^-21 relative error; set "
+                    "reader.packed_dtype='float32' to force exact rows).",
+                    self.name, rows)
+            if compensated:
+                out["packed"] = CompensatedTable.from_array(packed_all)
+            else:
+                arr = packed_all.astype(np.dtype(dtype), copy=False)
+                split = os.environ.get("OPENDRIFT_SPLIT_TABLE")
+                if split in ("u16", "u8"):
+                    arr = maybe_split_table(arr, force=split)
+                out["packed"] = arr
+            if pair_mode in ("xy", "xyz") and all(v in col_of for v in UV):
                 # narrow u/v companion for the RK stage refetches: the
-                # same stencil layout, only the u/v frame columns
+                # same stencil layout, only the u/v frame columns.  Beside
+                # a compensated table it stays float32, as in the JAX
+                # package (ROADMAP C records the decision)
                 uv_sub = []
                 for v in UV:
                     c0 = col_of[v][0]
                     uv_sub.extend(range(c0, c0 + F))
-                k = {"xy": 4, "xyz": 8}[pair_mode]
+                k = PackedSampler.PAIR_FACTOR[pair_mode]
                 idx = np.concatenate([np.asarray(uv_sub) + b * C
                                       for b in range(k)])
                 out["packed_uv"] = np.ascontiguousarray(
-                    out["packed"][:, idx])
+                    packed_all[:, idx],
+                    dtype=np.float32 if compensated else np.dtype(dtype))
                 self._sampler_uv = PackedSampler(
                     Z, ny, nx, F, {UV[0]: (0, "t"), UV[1]: (F, "t")},
                     pair_mode)
@@ -284,16 +335,21 @@ class StructuredGridReader(BaseReader):
                 packed[:, :, :, c0 + fi] = self._load_frame(v, ti)[None]
         for v in self._static_packed + self._static_near:
             packed[:, :, :, col_of[v][0]] = self._load_frame(v, 0)[None]
+        if pair_mode == "none":
+            return packed
 
         def shift_x(a):
             return np.concatenate([a[:, :, 1:], a[:, :, -1:]], axis=2)
 
         def shift_y(a):
             return np.concatenate([a[:, 1:], a[:, -1:]], axis=1)
-        # [base | x+1 | y+1 | x+1,y+1], then the same four at z+1 ('xyz';
-        # the deepest plane repeats, the clamp of z1 = min(z0+1, Z-1))
-        packed = np.concatenate([packed, shift_x(packed), shift_y(packed),
-                                 shift_x(shift_y(packed))], axis=3)
+        # [base | x+1] ('x'), then [y+1 | x+1,y+1] ('xy'), then the same
+        # four at z+1 ('xyz'; the deepest plane repeats, the clamp of
+        # z1 = min(z0+1, Z-1))
+        variants = [packed, shift_x(packed)]
+        if pair_mode in ("xy", "xyz"):
+            variants += [shift_y(packed), shift_x(shift_y(packed))]
+        packed = np.concatenate(variants, axis=3)
         if pair_mode == "xyz":
             packed = np.concatenate(
                 [packed, np.concatenate([packed[1:], packed[-1:]], axis=0)],
@@ -345,7 +401,7 @@ class StructuredGridReader(BaseReader):
             # mask-only fetch: one rounded-index gather of plane 0
             x0 = torch.clamp(torch.round(xi).to(torch.int64), 0, s.X - 1)
             y0 = torch.clamp(torch.round(yi).to(torch.int64), 0, s.Y - 1)
-            g = dev_state["packed"].index_select(0, y0 * s.X + x0)
+            g = take_rows(dev_state["packed"], y0 * s.X + x0)
             for v in want_n:
                 values[v] = g[:, s.col_of[v][0]].to(torch.float32)
             return values, covers
@@ -375,6 +431,86 @@ class StructuredGridReader(BaseReader):
             gamma = self.crs.convergence(tnp, lon, lat)
             values = self.rotate_vectors_sampled(values, varnames, gamma)
         return values, covers
+
+
+    # ------------------------------------------------- single-fetch RK --
+    def supports_uv_block(self):
+        """True when u/v ride x-paired packed rows, so RK stages can
+        re-evaluate one gathered corner block instead of refetching
+        (drift:advection_single_fetch)."""
+        s = getattr(self, "_sampler", None)
+        served = self._group3 + self._group2
+        return (s is not None and s.pair_mode in ("x", "xy", "xyz")
+                and all(v in served for v in UV))
+
+    def corner_block(self, dev_state, lon, lat, z, keep_vars=None):
+        """Gather the stage-reusable corner block at the given positions;
+        also returns the position coverage mask.  ``keep_vars`` defaults
+        to the current components; with every variable this reader serves
+        the whole start-position environment rides the same gathers."""
+        if keep_vars is None:
+            keep_vars = list(UV)
+        xi, yi = self._grid_indices(lon, lat)
+        covers = self._covers_idx(xi, yi)
+        block = self._sampler.gather_corner_block(
+            dev_state["packed"], xi, yi, torch.clamp_min(-z, 0.0),
+            dev_state["depths"], keep_vars=keep_vars)
+        return block, covers
+
+    def uv_corner_block(self, dev_state, lon, lat, z):
+        """Corner block holding only u/v (single-fetch RK stages)."""
+        return self.corner_block(dev_state, lon, lat, z)
+
+    def sample_from_block(self, dev_state, block, t, lon, lat, varnames):
+        """Evaluate kept variables from a gathered corner block at
+        (possibly displaced) positions, with no gather.  Equals ``sample``
+        up to the order of the linear blends where the position is the
+        block's gather position.  Returns (values, temporal coverage)."""
+        xi, yi = self._grid_indices(lon, lat)
+        vals = self._sampler.eval_corner_block(
+            block, xi, yi, dev_state["times"], t, varnames)
+        if not self.crs.is_latlon:
+            gamma = self.crs.convergence(tnp, lon, lat)
+            vals = self.rotate_vectors_sampled(vals, varnames, gamma)
+        covers_t = torch.full_like(
+            lon, self._time_covered(dev_state["times"], t), dtype=torch.bool)
+        return vals, covers_t
+
+    def uv_from_block(self, dev_state, block, t, lon, lat):
+        """u/v from a gathered block at (possibly displaced) stage
+        positions: blends and the rotation, no gather."""
+        vals, _ = self.sample_from_block(dev_state, block, t, lon, lat,
+                                         list(UV))
+        return vals[UV[0]], vals[UV[1]]
+
+    def sample_profiles(self, dev_state, varnames, t, lon, lat, zlevels):
+        """Profiles at the fixed ``zlevels`` (host float32, 0 downwards):
+        one packed-row sample per level for the 3D variables, (L, N) each;
+        other variables are sampled once and repeated.  Returns
+        (values, position coverage)."""
+        want3 = [v for v in varnames if v in self._group3]
+        out = {}
+        xi, yi = self._grid_indices(lon, lat)
+        if want3:
+            res = {v: [] for v in want3}
+            for level in zlevels:
+                depth = torch.full_like(xi, max(-float(level), 0.0))
+                rows = self._sampler.gather_rows(
+                    dev_state["packed"], xi, yi, depth, dev_state["depths"])
+                vals = self._sampler.values(rows, dev_state["times"], t,
+                                            want3)
+                for v in want3:
+                    res[v].append(vals[v])
+            for v in want3:
+                out[v] = torch.stack(res[v])
+        rest = [v for v in varnames if v not in want3]
+        if rest:
+            vals, covers = self.sample(dev_state, rest, t, lon, lat,
+                                       torch.zeros_like(lon))
+            for v in rest:
+                out[v] = vals[v].expand(len(zlevels), -1)
+            return out, covers
+        return out, self._covers_idx(xi, yi)
 
 
 class ArrayReader(StructuredGridReader):

@@ -9,12 +9,21 @@ device states as host arrays and go through here.
 
 Frame times ('times') stay on the host as float32 numpy: the samplers
 compare them with the scalar step time there, never per element.
+
+The two table storages cross as plain dicts of arrays: a
+``CompensatedTable`` as ``{"kind": "compensated", "data", "scale"}``, a
+``SplitTable`` as ``{"kind": "split", "data", "factor", "dtype"}`` (``data``
+the JAX package's uint16/uint8 array or the port's int16/uint8 one: the
+bits are the same).  A corner block (the 5-tuple of
+``PackedSampler.gather_corner_block``) crosses with
+:func:`corner_block_from_numpy` / :func:`corner_block_to_numpy`.
 """
 
 import numpy as np
 import torch
 
 from .elements import ElementState
+from .ops.interp import CompensatedTable, SplitTable
 
 HOST_KEYS = ("times",)
 
@@ -38,14 +47,68 @@ def element_state_to_numpy(state):
     return {k: v.cpu().numpy() for k, v in state.data.items()}
 
 
+def table_to_numpy(table):
+    """A packed table of either package -> host form: a numpy array, or the
+    dict of a compensated or split table (see the module docstring).  Takes
+    the port's classes and any object with the JAX classes' attributes."""
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    name = type(table).__name__
+    if name == "CompensatedTable":
+        return {"kind": "compensated", "data": host(table.data),
+                "scale": host(table.scale)}
+    if name == "SplitTable":
+        dtype = getattr(table, "dtype_name", None) or str(
+            np.dtype(table.dtype))
+        return {"kind": "split", "data": host(table.data),
+                "factor": int(table.factor), "dtype": dtype}
+    return host(table)
+
+
+def table_from_numpy(value, device):
+    """The inverse of :func:`table_to_numpy`, onto ``device``."""
+    if isinstance(value, (CompensatedTable, SplitTable)):
+        return value.to(device)
+    if isinstance(value, dict) and value.get("kind") == "compensated":
+        return CompensatedTable(np.asarray(value["data"], np.float16),
+                                np.asarray(value["scale"], np.float32)
+                                ).to(device)
+    if isinstance(value, dict) and value.get("kind") == "split":
+        data = np.ascontiguousarray(value["data"])
+        if data.dtype.itemsize == 2:
+            data = data.view(np.int16)       # uint16 bits, kept as int16
+        return SplitTable(data, value["factor"], value["dtype"]).to(device)
+    return _tensor(value, device)
+
+
+def corner_block_from_numpy(block, device):
+    """A corner block with numpy members -> the port's, on ``device``."""
+    g_y0, g_y1, x0, y0, col_of = block
+    return (_tensor(g_y0, device), _tensor(g_y1, device),
+            _tensor(np.asarray(x0, np.int32), device),
+            _tensor(np.asarray(y0, np.int32), device),
+            {v: (int(c), str(kind)) for v, (c, kind) in col_of.items()})
+
+
+def corner_block_to_numpy(block):
+    """A corner block of either package -> numpy members."""
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    g_y0, g_y1, x0, y0, col_of = block
+    return (host(g_y0), host(g_y1), host(x0), host(y0), dict(col_of))
+
+
 def device_state_from_numpy(arrays, device):
     """A reader's host state -> its device state: arrays become tensors on
-    ``device`` (float32 stays float32), host keys stay numpy, non-array
-    entries pass through."""
+    ``device`` (float32 stays float32), table storages their device form,
+    host keys stay numpy, other entries pass through."""
     out = {}
     for k, v in dict(arrays).items():
         if k in HOST_KEYS:
             out[k] = np.asarray(v, dtype=np.float32)
+        elif isinstance(v, (CompensatedTable, SplitTable)) or (
+                isinstance(v, dict) and "kind" in v):
+            out[k] = table_from_numpy(v, device)
         elif isinstance(v, (np.ndarray, np.generic)) or hasattr(
                 v, "__array__"):
             out[k] = _tensor(v, device)
@@ -56,5 +119,6 @@ def device_state_from_numpy(arrays, device):
 
 def device_state_to_numpy(state):
     """The inverse of :func:`device_state_from_numpy`."""
-    return {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+    return {k: (table_to_numpy(v) if torch.is_tensor(v) or isinstance(
+                    v, (CompensatedTable, SplitTable)) else v)
             for k, v in dict(state).items()}

@@ -136,6 +136,17 @@ class OpenDriftSimulation(Timeable, Configurable):
             "general:use_auto_landmask": {
                 "type": "bool", "default": True, "level": CONFIG_LEVEL_ADVANCED,
                 "description": "Add a coastline landmask automatically"},
+            "general:coastline_bisection": {
+                "type": "enum", "enum": ["refetch", "block"],
+                "default": "refetch", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "How stranding bisection probes sample the "
+                "landmask. 'refetch': a fresh mask fetch per probe (exact, "
+                "reference semantics). 'block': probes re-read the held "
+                "corner block with edge clamping, with no gather; exact "
+                "when the step stays within one grid cell, else the "
+                "crossing point degrades toward the cell edge. Requires "
+                "drift:advection_single_fetch and the landmask served by "
+                "the same reader as the currents"},
             "general:rng": {
                 "type": "enum", "enum": ["threefry", "rbg"],
                 "default": "threefry", "level": CONFIG_LEVEL_ADVANCED,
@@ -221,7 +232,9 @@ class OpenDriftSimulation(Timeable, Configurable):
                 "type": "bool", "default": False,
                 "level": CONFIG_LEVEL_ADVANCED,
                 "description": "RK stages re-evaluate one gathered corner "
-                "block (not ported yet: ROADMAP A.3)"},
+                "block instead of refetching fields (fewer gathers; exact "
+                "while stage displacements stay inside one grid cell, "
+                "clamped beyond)"},
             "export:buffer_length": {
                 "type": "int", "default": 100, "min": 0, "max": 10 ** 6,
                 "level": CONFIG_LEVEL_ADVANCED,
@@ -493,6 +506,15 @@ class OpenDriftSimulation(Timeable, Configurable):
             for k in range(n_intervals):
                 t_rel = np.float32(k * K * dt)
                 dev_states = device_states(k)
+                if k + 1 < n_intervals:
+                    # Overlap the next window's host packing with this
+                    # interval's steps.  The JAX package starts the thread
+                    # after its asynchronous advance has returned; here
+                    # advance returns only when the host has launched every
+                    # kernel of the interval, so the thread starts before
+                    # it.  It packs on the host only: the copy to the card
+                    # is made by device_states(k + 1), on this thread.
+                    self.env.prefetch_device_states(*window(k + 1))
                 state, snap = advance(state, dev_states, t_rel,
                                       rng.fold_in(base_key, k))
                 frames.append(host(snap))
@@ -506,6 +528,7 @@ class OpenDriftSimulation(Timeable, Configurable):
                                + timedelta(seconds=float(t_rel)))
             self.state = state
         except Exception:
+            self.env.cancel_prefetch()
             if writer is not None:
                 flush(force=True)
                 writer.abort_close()
@@ -750,15 +773,15 @@ class OpenDriftSimulation(Timeable, Configurable):
         coastline_action = self.get_config("general:coastline_action")
         seafloor_action = self.get_config("general:seafloor_action")
         env_vars = self.active_required_variables()
+        coastline_bisection = self.get_config("general:coastline_bisection",
+                                              default="refetch")
         # profile variables that only have a fallback need no profile:
         # nothing reads one (vertical_mixing switches 'environment' to
         # windspeed_Large1994 when no reader serves the diffusivity)
-        served = [v for v in env.required_profiles if env.has_reader_for(v)]
-        if served or self.get_config("vertical_mixing:TSprofiles",
-                                     default=False):
-            raise NotImplementedError(
-                f"environment profiles (reader-served {served or 'T/S'}) "
-                "are not ported yet (ROADMAP A.3: sample_profiles)")
+        profile_vars = env.required_profiles if (
+            any(env.has_reader_for(v) for v in env.required_profiles)
+            or self.get_config("vertical_mixing:TSprofiles", default=False)
+        ) else []
         zlevels = self._profile_zlevels()
         has_seafloor = "sea_floor_depth_below_sea_level" in env_vars
         no_fallback_vars = [v for v in env_vars
@@ -782,11 +805,48 @@ class OpenDriftSimulation(Timeable, Configurable):
                             env.fallback_values.get("land_binary_mask", 0.0)
                             or 0.0) > 0.5))
 
-        def coastline(d, active, envs, dev_states, t_rel):
+        # block-backed env fetch: with single-fetch RK one corner-block
+        # gather serves the start-position environment AND every RK stage.
+        # Resolved at the first step: the plan needs the readers' samplers,
+        # which exist only after device_state().
+        want_block = bool(
+            self.get_config("drift:advection_single_fetch", default=False)
+            and self.get_config("drift:advection_scheme") != "euler")
+        block_plan_cache = []
+
+        def block_plan():
+            if not block_plan_cache:
+                plan = None
+                idx = env.uv_block_plan_index() if want_block else None
+                if idx is not None:
+                    b_reader, b_served = env._plan[idx]
+                    keep = [v for v in b_served if v in env_vars
+                            and b_reader.name in env.priority_list.get(v, [])]
+                    for v in ("x_sea_water_velocity", "y_sea_water_velocity"):
+                        if v not in keep:
+                            keep.append(v)
+                    plan = (idx, keep)
+                block_plan_cache.append(plan)
+            return block_plan_cache[0]
+
+        def fetch_block(d, dev_states):
+            """(plan index, corner block, covers0) of the block reader at
+            the elements' positions, or None."""
+            plan = block_plan()
+            if plan is None:
+                return None
+            block_idx, block_keep = plan
+            block, covers0 = env._plan[block_idx][0].corner_block(
+                dev_states[block_idx], d["lon"], d["lat"], d["z"],
+                keep_vars=block_keep)
+            return (block_idx, block, covers0)
+
+        def coastline(d, active, envs, dev_states, t_rel, block_ctx):
             """Coastline interaction (reference :670-746): strand at the
             first land point of the last transect (3 bisection rounds,
-            each one mask fetch, only when something strands), or move
-            back to the previous position."""
+            each one mask fetch or, with 'block' bisection, one
+            re-evaluation of the held corner block; only when something
+            strands), or move back to the previous position."""
             on_land = envs["land_binary_mask"] > 0.5
             if coastline_action == "previous":
                 back = active & on_land
@@ -797,15 +857,27 @@ class OpenDriftSimulation(Timeable, Configurable):
             if landmask_spatial and bool(strand.any()):
                 plon, plat = d["prev_lon"], d["prev_lat"]
                 lon_a, lat_a = d["lon"], d["lat"]
+                use_block_mask = (coastline_bisection == "block"
+                                  and block_ctx is not None
+                                  and "land_binary_mask" in block_ctx[1][4])
+
+                def mask_at(slon, slat):
+                    if use_block_mask:
+                        vals, _ = env._plan[block_ctx[0]][0].sample_from_block(
+                            dev_states[block_ctx[0]], block_ctx[1], t_rel,
+                            slon, slat, ["land_binary_mask"])
+                        return vals["land_binary_mask"]
+                    menv, _ = env.get_environment(
+                        dev_states, ["land_binary_mask"], t_rel, slon, slat,
+                        d["z"])
+                    return menv["land_binary_mask"]
+
                 lo = torch.zeros_like(lon_a)
                 hi = torch.ones_like(lon_a)
                 for _ in range(3):
                     mid = 0.5 * (lo + hi)
-                    menv, _ = env.get_environment(
-                        dev_states, ["land_binary_mask"], t_rel,
-                        plon + mid * (lon_a - plon),
-                        plat + mid * (lat_a - plat), d["z"])
-                    land = menv["land_binary_mask"] > 0.5
+                    land = mask_at(plon + mid * (lon_a - plon),
+                                   plat + mid * (lat_a - plat)) > 0.5
                     hi = torch.where(land, mid, hi)
                     lo = torch.where(land, lo, mid)
                 d["lon"] = torch.where(strand, plon + hi * (lon_a - plon),
@@ -823,9 +895,10 @@ class OpenDriftSimulation(Timeable, Configurable):
                 (d["release_tau"] < float(tau + np.float32(abs(params["dt"]))))
             d["status"] = torch.where(release, ACTIVE, d["status"])
             active = d["status"] == ACTIVE
+            block_ctx = fetch_block(d, dev_states)
             envs, missing = env.get_environment(
                 dev_states, env_vars, t_rel, d["lon"], d["lat"], d["z"],
-                key=key if env.uncertainty else None)
+                key=key if env.uncertainty else None, block_ctx=block_ctx)
             if no_fallback_vars:
                 miss_any = torch.zeros_like(active)
                 for v in no_fallback_vars:
@@ -842,7 +915,8 @@ class OpenDriftSimulation(Timeable, Configurable):
                                       d["status"])
             active = d["status"] == ACTIVE
             if coast_active:
-                active = coastline(d, active, envs, dev_states, t_rel)
+                active = coastline(d, active, envs, dev_states, t_rel,
+                                   block_ctx)
             if has_seafloor and seafloor_action != "none":
                 depth = envs["sea_floor_depth_below_sea_level"]
                 below = d["z"] < -depth
@@ -853,7 +927,7 @@ class OpenDriftSimulation(Timeable, Configurable):
                                               status_seafloor, d["status"])
                 elif seafloor_action == "previous":
                     d["z"] = torch.where(active & below, d["prev_z"], d["z"])
-            return ElementState(d), envs
+            return ElementState(d), envs, block_ctx
 
         def snapshot(state, envs):
             export = self.export_variables
@@ -865,7 +939,7 @@ class OpenDriftSimulation(Timeable, Configurable):
                          if export is None or name in export})
             return snap
 
-        def post_update(state, envs, dev_states, t_rel, key):
+        def post_update(state, envs, dev_states, t_rel, key, block_ctx):
             """Aging/retirement, model physics, horizontal diffusion —
             the phase after the output snapshot (reference :2266-2304)."""
             d = dict(state.data)
@@ -879,8 +953,16 @@ class OpenDriftSimulation(Timeable, Configurable):
             d["prev_lon"] = d["lon"]
             d["prev_lat"] = d["lat"]
             d["prev_z"] = d["z"]
-            ctx = StepContext(self, ElementState(d), envs, None, dev_states,
-                              t_rel, params, key, zlevels)
+            profiles = None
+            if profile_vars:
+                profiles = env.get_profiles(dev_states, profile_vars, t_rel,
+                                            d["lon"], d["lat"], zlevels)
+            ctx = StepContext(self, ElementState(d), envs, profiles,
+                              dev_states, t_rel, params, key, zlevels)
+            if block_ctx is not None:
+                ctx.uv_block_ctx = (env._plan[block_ctx[0]][0],
+                                    dev_states[block_ctx[0]], block_ctx[1],
+                                    block_ctx[2])
             self.update(ctx)
             ctx.horizontal_diffusion()
             ctx.flush_positions()
@@ -891,10 +973,11 @@ class OpenDriftSimulation(Timeable, Configurable):
             return ctx.state
 
         def step(state, dev_states, t_rel, tau, key, want_snap):
-            state, envs = pre_update(state, dev_states, t_rel, tau,
-                                     rng.fold_in(key, 987654))
+            state, envs, block_ctx = pre_update(state, dev_states, t_rel, tau,
+                                                rng.fold_in(key, 987654))
             snap = snapshot(state, envs) if want_snap else None
-            state = post_update(state, envs, dev_states, t_rel, key)
+            state = post_update(state, envs, dev_states, t_rel, key,
+                                block_ctx)
             return state, snap
 
         def advance(state, dev_states, t0_rel, key):
@@ -913,9 +996,9 @@ class OpenDriftSimulation(Timeable, Configurable):
 
         def final_snapshot(state, dev_states, t_rel):
             t_rel = np.float32(t_rel)
-            state, envs = pre_update(state, dev_states, t_rel,
-                                     t_rel * np.float32(sign),
-                                     rng.PRNGKey(0))
+            state, envs, _ = pre_update(state, dev_states, t_rel,
+                                        t_rel * np.float32(sign),
+                                        rng.PRNGKey(0))
             return snapshot(state, envs)
 
         return advance, final_snapshot
@@ -996,6 +1079,9 @@ class StepContext(PhysicsContext):
             sim.get_config("drift:position_update") == "fused")
         self._u_acc = None
         self._v_acc = None
+        # (reader, device state, corner block, covers0) of the step's
+        # block-backed env fetch, for the single-fetch RK stages
+        self.uv_block_ctx = None
 
     # -- RNG ---------------------------------------------------------------
     def next_key(self):

@@ -5,13 +5,15 @@ opendrift/models/oceandrift.py:54-714): current + wind + Stokes
 advection, vertical advection, buoyancy, and Visser (1997) random-walk
 vertical mixing.  The mixing inner loop runs through the CUDA kernels of
 ``ops/mixing.py`` (their plain versions on the CPU): the windspeed
-parameterisations through ``visser_mixing``, the 'constant' profile
-through ``visser_mixing_profile``; a subclass can run its own fused
-kernel through the ``_mixing_fast_path`` hook (OpenOil does, through
-``visser_mixing_oil``).  Reader-served diffusivity profiles ('environment'
-with a reader) and T/S profiles come with ROADMAP A.3; the generic
-per-substep loop for subclasses that override the substep hooks, and the
-machine-learning drift correction, with A.12.
+parameterisations through ``visser_mixing``; the profile models,
+'constant' and 'environment' with a reader-served
+``ocean_vertical_diffusivity``, through ``visser_mixing_profile``; a
+subclass can run its own fused kernel through the ``_mixing_fast_path``
+hook (OpenOil does, through ``visser_mixing_oil``).  Everything else takes
+the generic per-substep loop, a Python loop over the substeps with the
+kernels' own draws: ``vertical_mixing:use_pallas=False``, T/S profiles,
+and subclasses that override the substep hooks.  The machine-learning
+drift correction comes with ROADMAP A.12.
 """
 
 import logging
@@ -136,14 +138,14 @@ class OceanDrift(OpenDriftSimulation):
             "vertical_mixing:TSprofiles": {
                 "type": "bool", "default": False,
                 "level": CONFIG_LEVEL_ADVANCED,
-                "description": "Use T/S profiles in the mixing inner loop "
-                "(not ported yet: ROADMAP A.3)"},
+                "description": "Update T and S (and with them the terminal "
+                "velocity) from profiles in the mixing inner loop"},
             "vertical_mixing:use_pallas": {
                 "type": "bool", "default": True,
                 "level": CONFIG_LEVEL_ADVANCED,
                 "description": "Run the mixing inner loop through the "
-                "fused mixing kernels (the name is the JAX package's); the "
-                "generic per-substep loop is not ported yet (ROADMAP A.12)"},
+                "fused mixing kernels (the name is the JAX package's); "
+                "False takes the generic per-substep loop"},
             "drift:wind_drift_depth": {
                 "type": "float", "default": 0.1, "min": 0, "max": 10,
                 "units": "meters", "level": CONFIG_LEVEL_ADVANCED,
@@ -244,6 +246,36 @@ class OceanDrift(OpenDriftSimulation):
         oceandrift.py:509-512)."""
         return ctx.state.data["terminal_velocity"]
 
+    def surface_stick(self, ctx, mix):
+        """Keep elements at/above the surface at z=0
+        (reference oceandrift.py:374-378)."""
+        mix["z"] = torch.clamp_max(mix["z"], 0.0)
+        return mix
+
+    def surface_wave_mixing(self, ctx, mix, dt_mix, key):
+        """Subclass hook, e.g. oil wave entrainment
+        (reference oceandrift.py:383-386)."""
+        return mix
+
+    def bottom_interaction(self, ctx, mix, zmin):
+        """Subclass hook, e.g. sediment settling
+        (reference oceandrift.py:380-381)."""
+        return mix
+
+    @staticmethod
+    def profile_interp(ctx, prof, z):
+        """Linear interpolation of an (L, N) profile at element depth
+        ``z`` over the fixed ``ctx.zlevels`` (descending from 0)."""
+        zlev = ctx.zlevels
+        h = float(zlev[0] - zlev[1])
+        L = zlev.shape[0]
+        fi = torch.clip(-z / h, 0.0, L - 1.0)
+        i0 = torch.clip(torch.floor(fi).to(torch.int64), 0, L - 2)
+        w = fi - i0
+        lo = torch.gather(prof, 0, i0[None, :])[0]
+        hi = torch.gather(prof, 0, (i0 + 1)[None, :])[0]
+        return lo * (1.0 - w) + hi * w
+
     def _mixing_fast_path(self, ctx, model, ntimes, dt_mix, zmin, moving,
                           extra, store_depths, has_TS_profiles):
         """Subclass hook: run the mixing inner loop through a fused kernel
@@ -251,6 +283,24 @@ class OceanDrift(OpenDriftSimulation):
         caller (e.g. OpenOil's wave-entrainment kernel,
         ops/mixing.visser_mixing_oil)."""
         return False
+
+    def _mixing_kernels_applicable(self, model):
+        """True when the inner loop can run through ``visser_mixing`` or
+        ``visser_mixing_profile``: a windspeed or profile diffusivity
+        model, every per-substep hook at its base implementation, and
+        ``vertical_mixing:use_pallas`` on."""
+        if model not in mixing.WINDSPEED_MODELS \
+                and model not in ("environment", "constant"):
+            return False
+        cls = type(self)
+        if not (cls.surface_stick is OceanDrift.surface_stick
+                and cls.surface_wave_mixing is OceanDrift.surface_wave_mixing
+                and cls.bottom_interaction is OceanDrift.bottom_interaction
+                and cls.terminal_velocity_inner
+                is OceanDrift.terminal_velocity_inner):
+            return False
+        return bool(self.get_config("vertical_mixing:use_pallas",
+                                    default=True))
 
     # --------------------------------------------------- vertical physics -
     def vertical_advection(self, ctx):
@@ -287,9 +337,35 @@ class OceanDrift(OpenDriftSimulation):
                  + ctx.sea_surface_height())
         ctx.set_var("z", torch.maximum(z, zmin))
 
-    def vertical_mixing(self, ctx):
+    def _diffusivity_at(self, ctx, z, Kprof, gradK, model):
+        """Diffusivity and gradient at element depth: the nearest level of
+        a profile (reference oceandrift.py:515-519), or a windspeed
+        parameterisation on the reference's 1-metre nearest levels with a
+        one-sided gradient at the surface (oceandrift.py:430-455)."""
+        if Kprof is not None:
+            h = float(ctx.zlevels[0] - ctx.zlevels[1])
+            L = ctx.zlevels.shape[0]
+            zi = torch.clip(torch.round(-z / h).to(torch.int64), 0,
+                            L - 1)[None]
+            return torch.gather(Kprof, 0, zi)[0], torch.gather(gradK, 0,
+                                                               zi)[0]
+        wind = ctx.wind_speed()
+        mld = ctx.environment["ocean_mixed_layer_thickness"]
+        bg = float(self.get_config("vertical_mixing:background_diffusivity"))
+
+        def K_of(depth):
+            return mixing._diffusivity(model, wind, mld, bg, depth)
+        lvl = torch.minimum(torch.clamp_min(torch.round(torch.abs(z)), 0.0),
+                            mld + 1.0)
+        dKdz = torch.where(
+            lvl == 0.0, K_of(lvl + 1.0) - K_of(lvl),
+            (K_of(lvl + 1.0) - K_of(torch.clamp_min(lvl - 1.0, 0.0))) / 2.0)
+        return K_of(lvl), dKdz
+
+    def vertical_mixing(self, ctx, store_depths=False):
         """Visser (1997) random-walk mixing inner loop (reference
-        oceandrift.py:397-571), through the mixing kernels."""
+        oceandrift.py:397-571): through the mixing kernels where they
+        apply, else a loop over the substeps."""
         d = ctx.state.data
         dt = ctx.params["dt"]
         dt_mix = float(self.get_config("vertical_mixing:timestep"))
@@ -299,64 +375,94 @@ class OceanDrift(OpenDriftSimulation):
                  + ctx.sea_surface_height())
         self.prepare_vertical_mixing(ctx)
         model = self.get_config("vertical_mixing:diffusivitymodel")
+        Kprof = gradK = None
         if model == "environment":
             # the reference uses reader profiles only when a reader serves
             # the variable; with a fallback-only diffusivity it switches to
             # windspeed_Large1994 (reference oceandrift.py:432-445)
             if self.env.priority_list.get("ocean_vertical_diffusivity"):
-                raise NotImplementedError(
-                    "reader-served diffusivity profiles are not ported yet "
-                    "(ROADMAP A.3: sample_profiles)")
-            model = "windspeed_Large1994"
-        # (vertical_mixing:TSprofiles is refused before the first step,
-        # models/base.py ``_make_advance``)
-        if not self.get_config("vertical_mixing:use_pallas"):
-            raise NotImplementedError(
-                "the generic per-substep mixing loop is not ported yet "
-                "(ROADMAP A.12); keep vertical_mixing:use_pallas=True")
-        mixing_at_surface = bool(
-            self.get_config("drift:vertical_mixing_at_surface"))
-        # Key order as in the JAX package (bit-equal threefry, rng.py): the
-        # subclass's prepare hook draws first, then this base key, then a
-        # subclass's fast path.  The per-step seed of the kernels below is
-        # the base key's bits.
-        base_key = ctx.next_key()
-        extra = self.mixing_carry_extra(ctx)
-        if self._mixing_fast_path(ctx, model, ntimes, dt_mix, zmin,
-                                  d["moving"], extra, False, False):
-            return
-        if extra or type(self).terminal_velocity_inner \
-                is not OceanDrift.terminal_velocity_inner:
-            raise NotImplementedError(
-                f"{type(self).__name__} overrides the mixing substep hooks "
-                f"and has no fused kernel for diffusivity model {model!r}; "
-                "the generic per-substep mixing loop is not ported yet "
-                "(ROADMAP A.12)")
-        seed = rng.bits(base_key)
-        w = d.get("terminal_velocity", torch.zeros_like(d["z"]))
+                Kprof = ctx.profiles["ocean_vertical_diffusivity"]
+            else:
+                model = "windspeed_Large1994"
         if model == "constant":
             fb = float(self.env.fallback_values.get(
                 "ocean_vertical_diffusivity", 0.0))
-            L = ctx.zlevels.shape[0]
-            h = float(ctx.zlevels[0] - ctx.zlevels[1])
-            Kprof = torch.full((L,) + tuple(d["z"].shape), fb,
-                               dtype=torch.float32, device=d["z"].device)
+            Kprof = torch.full((ctx.zlevels.shape[0],) + tuple(d["z"].shape),
+                               fb, dtype=torch.float32, device=d["z"].device)
+        h = float(ctx.zlevels[0] - ctx.zlevels[1])
+        if Kprof is not None:
             # -d(K)/d(level) like the reference's gradK (oceandrift.py
             # :503-505); levels descend, so the spacing is -h
             gradK = -torch.gradient(Kprof, dim=0)[0] / (-h)
             gradK = torch.where(torch.abs(gradK) < 1e-10, 0.0, gradK)
-            z_out = mixing.visser_mixing_profile(
-                d["z"], d["moving"], w, Kprof, gradK, zmin, seed,
-                elem=d["ID"], ntimes=ntimes, dt_mix=dt_mix, h=h,
-                mixing_at_surface=mixing_at_surface)
-        else:
-            z_out = mixing.visser_mixing(
-                d["z"], d["moving"], w, ctx.wind_speed(),
-                ctx.environment.get("ocean_mixed_layer_thickness",
-                                    torch.full_like(d["z"], 50.0)),
-                zmin, seed, elem=d["ID"], ntimes=ntimes, dt_mix=dt_mix,
-                model=model,
-                bg=float(self.get_config(
-                    "vertical_mixing:background_diffusivity")),
-                mixing_at_surface=mixing_at_surface)
-        ctx.set_var("z", torch.where(ctx.active, z_out, d["z"]))
+        mixing_at_surface = bool(
+            self.get_config("drift:vertical_mixing_at_surface"))
+        moving = d["moving"]
+        # Key order as in the JAX package (bit-equal threefry, rng.py): the
+        # subclass's prepare hook draws first, then this base key, then a
+        # subclass's fast path.  The seed of the kernels and of the loop's
+        # draws below is the base key's bits.
+        base_key = ctx.next_key()
+        Tprof = Sprof = None
+        if self.get_config("vertical_mixing:TSprofiles") and ctx.profiles \
+                and "sea_water_temperature" in ctx.profiles:
+            Tprof = ctx.profiles["sea_water_temperature"]
+            Sprof = ctx.profiles["sea_water_salinity"]
+        extra = self.mixing_carry_extra(ctx)
+        if self._mixing_fast_path(ctx, model, ntimes, dt_mix, zmin, moving,
+                                  extra, store_depths, Tprof is not None):
+            return
+        seed = rng.bits(base_key)
+        if not extra and not store_depths and Tprof is None \
+                and self._mixing_kernels_applicable(model):
+            w = d.get("terminal_velocity", torch.zeros_like(d["z"]))
+            if Kprof is not None:       # 'environment' / 'constant' profiles
+                z_out = mixing.visser_mixing_profile(
+                    d["z"], moving, w, Kprof, gradK, zmin, seed,
+                    elem=d["ID"], ntimes=ntimes, dt_mix=dt_mix, h=h,
+                    mixing_at_surface=mixing_at_surface)
+            else:
+                z_out = mixing.visser_mixing(
+                    d["z"], moving, w, ctx.wind_speed(),
+                    ctx.environment.get("ocean_mixed_layer_thickness",
+                                        torch.full_like(d["z"], 50.0)),
+                    zmin, seed, elem=d["ID"], ntimes=ntimes, dt_mix=dt_mix,
+                    model=model,
+                    bg=float(self.get_config(
+                        "vertical_mixing:background_diffusivity")),
+                    mixing_at_surface=mixing_at_surface)
+            ctx.set_var("z", torch.where(ctx.active, z_out, d["z"]))
+            return
+        # The generic loop: one pass of plain tensor operations a substep,
+        # with the hooks a subclass may override.  Its walk draws are the
+        # kernels' (SplitMix32 keyed by element ID, ops/mixing.py), so with
+        # the base hooks it repeats the kernels' plain versions.
+        elem_base = mixing._element_base(d["ID"], seed)
+        adt = abs(dt_mix)
+        mix = {"z": d["z"], "moving": moving, **extra}
+        for i in range(ntimes):
+            key = rng.fold_in(base_key, i)
+            z = mix["z"]
+            mv = mix["moving"]
+            surface = z == 0.0
+            w = self.terminal_velocity_inner(ctx, z, Tprof, Sprof, mix=mix)
+            Kz, dKdz = self._diffusivity_at(ctx, z, Kprof, gradK, model)
+            R = mixing._draw(elem_base, i)
+            z = z - mv * (dKdz * dt_mix - R * torch.sqrt(Kz * adt * 6.0))
+            z = torch.where(z >= 0.0, -z, z)               # surface reflect
+            z = torch.where((z < zmin) & (mv == 1.0),
+                            2.0 * zmin - z, z)             # seafloor reflect
+            z = z + w * dt_mix * mv                        # buoyancy
+            if not mixing_at_surface:
+                z = torch.where(surface, 0.0, z)
+            mix = dict(mix)
+            mix["z"] = z
+            mix = self.surface_stick(ctx, mix)
+            mix = self.surface_wave_mixing(ctx, mix, adt, key)
+            mix["z"] = torch.maximum(mix["z"], zmin)       # bottom stick
+            mix = self.bottom_interaction(ctx, mix, zmin)
+        active = ctx.active
+        ctx.set_var("z", torch.where(active, mix["z"], d["z"]))
+        ctx.set_var("moving", torch.where(active, mix["moving"], moving))
+        for k in extra:
+            ctx.set_var(k, torch.where(active, mix[k], d[k]))

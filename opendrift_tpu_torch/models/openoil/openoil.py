@@ -14,8 +14,11 @@ axis last, and droplet diameters are drawn from the lognormal volume
 distribution in closed form.  The mixing inner loop runs through the fused
 oil kernel (``ops/mixing.visser_mixing_oil``; its plain version on the
 CPU).  Where that kernel does not apply (a profile diffusivity model, T/S
-profiles, overridden hooks) the step raises ``NotImplementedError``: the
-generic per-substep loop comes with ROADMAP A.12.  ``seed_from_gml``,
+profiles, ``vertical_mixing:use_pallas=False``, overridden hooks) the step
+takes the generic per-substep loop of ``OceanDrift.vertical_mixing`` with
+:meth:`OpenOil.surface_wave_mixing`, whose entrainment draws are keyed
+otherwise than the kernel's (as in the JAX package: the two paths give
+different realisations of the same process).  ``seed_from_gml``,
 ``seed_from_geotiff_thickness`` and the plot helpers come with A.13.
 
 Float32 throughout: the oil's scalar properties are Python floats, which
@@ -475,14 +478,20 @@ class OpenOil(OceanDrift):
                           extra, store_depths, has_TS_profiles):
         """The fused inner loop of the oil mixing cycle: Visser walk +
         Tkalich rise + wave entrainment in one kernel
-        (ops/mixing.visser_mixing_oil).  Returns False when profiles or
-        hook overrides make the kernel invalid; the caller then raises,
-        since the generic loop is not ported (ROADMAP A.12)."""
+        (ops/mixing.visser_mixing_oil).  Returns False when profiles,
+        hook overrides or ``vertical_mixing:use_pallas=False`` make the
+        kernel invalid; the caller then takes the generic loop."""
+        cls = type(self)
         if (store_depths or has_TS_profiles
                 or set(extra) != {"diameter"}
                 or model not in mixing.WINDSPEED_MODELS
-                or type(self).terminal_velocity_inner
-                is not OpenOil.terminal_velocity_inner):
+                or cls.surface_stick is not OceanDrift.surface_stick
+                or cls.bottom_interaction is not OceanDrift.bottom_interaction
+                or cls.surface_wave_mixing is not OpenOil.surface_wave_mixing
+                or cls.terminal_velocity_inner
+                is not OpenOil.terminal_velocity_inner
+                or not self.get_config("vertical_mixing:use_pallas",
+                                       default=True)):
             return False
 
         d = ctx.state.data
@@ -521,15 +530,38 @@ class OpenOil(OceanDrift):
                                             d["diameter"]))
         return True
 
+    def surface_wave_mixing(self, ctx, mix, dt_mix, key):
+        """Whitecapping entrainment of surface oil in the generic loop
+        (reference openoil.py:1033-1056).  Draws are SplitMix32 on the
+        element ID, salted with the substep key's bits."""
+        z = mix["z"]
+        surface = z >= 0.0
+        ids = ctx.state.data["ID"].to(torch.int64) & mixing._M32
+        salt = rng.bits(key)
+        bits1 = mixing.splitmix32(
+            (ids + (salt * 0x9e3779b9 & mixing._M32)) & mixing._M32)
+        bits2 = mixing.splitmix32((bits1 + 0xc2b2ae35) & mixing._M32)
+        entrained = surface & (mixing._unit(bits1)
+                               < ctx._oil_entrainment_probability)
+        zb = 1.5 * ctx.significant_wave_height()
+        mix["z"] = torch.where(entrained, -(mixing._unit(bits2) * zb), z)
+        if not self.keep_droplet_diameter:
+            mix["diameter"] = torch.where(
+                entrained, ctx._droplet_diameter_if_entrained,
+                mix["diameter"])
+        return mix
+
     def terminal_velocity_inner(self, ctx, z, Tprof, Sprof, mix=None):
         """Tkalich (2002) oil droplet rise velocity with high-Reynolds
-        switch (reference openoil.py:922-998)."""
+        switch (reference openoil.py:922-998), at the T/S of the profiles
+        where they are given."""
         d = ctx.state.data
-        if Tprof is not None or Sprof is not None:
-            raise NotImplementedError(
-                "T/S profiles are not ported yet (ROADMAP A.3)")
-        T0 = ctx.environment["sea_water_temperature"]
-        S0 = ctx.environment["sea_water_salinity"]
+        if Tprof is not None and Sprof is not None:
+            T0 = self.profile_interp(ctx, Tprof, z)
+            S0 = self.profile_interp(ctx, Sprof, z)
+        else:
+            T0 = ctx.environment["sea_water_temperature"]
+            S0 = ctx.environment["sea_water_salinity"]
         # inside the mixing loop the diameter is carried and updated on
         # entrainment — use it, not the stale start-of-step value
         r = mix["diameter"] if mix is not None and "diameter" in mix \

@@ -4,8 +4,9 @@ Port of ``opendrift_tpu/models/physics.py`` (reference:
 opendrift/models/physics_methods.py:570-848): a mixin of ``StepContext``
 whose methods transform the element state with torch.  The RK stage
 refetches sample the same device field providers at displaced positions
-and times.  Single-fetch RK stages (``drift:advection_single_fetch``) and
-fetch-tabulated Stokes drift come with ROADMAP A.3 and A.12.
+and times, or, with ``drift:advection_single_fetch``, re-evaluate one
+corner block gathered once a step.  Fetch-tabulated Stokes drift comes
+with ROADMAP A.12.
 """
 
 import numpy as np
@@ -38,18 +39,42 @@ class PhysicsContext:
         if scheme == "euler":
             self.update_positions(factor * u, factor * v)
             return
+        # single-fetch RK (opt-in): gather the u/v corner block once and
+        # evaluate every stage against it.  Stage displacements are
+        # normally well under one grid cell (|u| dt/2 << dx), where this is
+        # exact; beyond one cell the block evaluation clamps.
+        block_ctx = None
         if self.sim.get_config("drift:advection_single_fetch",
                                default=False):
-            raise NotImplementedError(
-                "drift:advection_single_fetch (corner blocks) is not "
-                "ported yet (ROADMAP A.3)")
+            # prefer the block already gathered for the step's env fetch
+            # (models/base.py pre_update): it was gathered at the
+            # pre-coastline positions; for the few relocated elements the
+            # stage evaluation clamps to that cell
+            block_ctx = self.uv_block_ctx
+            if block_ctx is None:
+                idx = self.sim.env.uv_block_plan_index()
+                if idx is not None:
+                    reader = self.sim.env._plan[idx][0]
+                    dev_state = self.dev_states[idx]
+                    block, covers0 = reader.uv_corner_block(
+                        dev_state, d["lon"], d["lat"], d["z"])
+                    block_ctx = (reader, dev_state, block, covers0)
 
         def stage(uvel, vvel, dist_frac, t_frac):
             lat_s, lon_s = geodesic_step_fast(tnp, d["lat"], d["lon"], uvel,
                                               vvel, dt * dist_frac)
+            t_s = np.float32(self.t_rel) + dt * t_frac
+            if block_ctx is not None:
+                reader, dev_state, block, covers0 = block_ctx
+                u_s, v_s = reader.uv_from_block(dev_state, block, t_s, lon_s,
+                                                lat_s)
+                # outside the primary reader: hold the priority-merged
+                # start velocities (fallback semantics)
+                return (torch.where(covers0, u_s, uvel),
+                        torch.where(covers0, v_s, vvel))
             env = self.get_environment(
-                ["x_sea_water_velocity", "y_sea_water_velocity"],
-                np.float32(self.t_rel) + dt * t_frac, lon_s, lat_s, d["z"])
+                ["x_sea_water_velocity", "y_sea_water_velocity"], t_s, lon_s,
+                lat_s, d["z"])
             return env["x_sea_water_velocity"], env["y_sea_water_velocity"]
 
         u2, v2 = stage(u, v, 0.5, 0.5)

@@ -28,27 +28,21 @@ The library is compiled with ``nvcc`` on first use into
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 
 import torch
 
 from . import physics as ph
+from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch
 
 WINDSPEED_MODELS = ("windspeed_Sundby1983", "windspeed_Large1994",
                     "stepfunction")
 _MODEL_CODE = {m: i for i, m in enumerate(WINDSPEED_MODELS)}
 
 _M32 = 0xFFFFFFFF
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "visser_mixing.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                          "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC"]
+# -fmad=false: no contracted multiply-adds, so a kernel rounds like its
+# plain version
+NVCC_FLAGS = [*ARCH_FLAGS, "-fmad=false", *SHARED_FLAGS]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -56,29 +50,13 @@ _lib_lock = threading.Lock()
 build_log = None
 
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
 def build_library():
     """Compile ``csrc/visser_mixing.cu`` (once per source content) and
     return the path of the shared library."""
     global build_log
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR,
-                      f"libvisser_mixing_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{out.stderr}")
-        build_log = out.stderr
-        os.replace(tmp, so)
+    so, report = build("visser_mixing.cu", NVCC_FLAGS)
+    if report is not None:
+        build_log = report
     return so
 
 
@@ -200,11 +178,6 @@ def _on_card(dev):
     return dev.type == "cuda"
 
 
-def _check_launch(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 # ------------------------------------------------- windspeed models -------
 
 def visser_mixing_plain(z, moving, w, wind, mld, zmin, elem, seed, *, ntimes,
@@ -251,7 +224,7 @@ def visser_mixing(z, moving, w, wind, mld, zmin, seed, elem=None, *, ntimes,
         opts["ntimes"], opts["dt_mix"], _MODEL_CODE[model], opts["bg"],
         int(opts["mixing_at_surface"]), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(rc, "visser_mixing")
+    check_launch(rc, "visser_mixing")
     visser_mixing.launches += 1
     return out
 
@@ -311,7 +284,7 @@ def visser_mixing_profile(z, moving, w, Kprof, gradK, zmin, seed, elem=None,
         opts["ntimes"], opts["dt_mix"], opts["h"], L,
         int(opts["mixing_at_surface"]), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(rc, "visser_mixing_profile")
+    check_launch(rc, "visser_mixing_profile")
     visser_mixing_profile.launches += 1
     return out
 
@@ -394,7 +367,7 @@ def visser_mixing_oil(z, diam, moving, wind, mld, zmin, p_ent, d_cand, zb,
         int(opts["mixing_at_surface"]), int(opts["keep_diam"]), n,
         z_out.data_ptr(), diam_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(rc, "visser_mixing_oil")
+    check_launch(rc, "visser_mixing_oil")
     visser_mixing_oil.launches += 1
     return z_out, diam_out
 

@@ -314,3 +314,97 @@ def test_openoil_run_on_the_card_goes_through_the_oil_kernel():
     z_cpu = np.asarray(cpu.result["z"].values, np.float64)
     assert np.mean(np.abs(z_card - z_cpu) > 0.1) <= 0.05
     assert (z_card[:, -1] < 0).any()
+
+
+# ------------------------------------------------ the row-gather kernels --
+
+from opendrift_tpu_torch.ops import gather  # noqa: E402
+from opendrift_tpu_torch.tools import gather_ab  # noqa: E402
+
+GATHER_CASES = [      # R, C, N, table type, index type
+    (250_000, 24, 200_003, torch.float32, torch.int32),   # the tool's shape
+    (2_000, 24, 200_003, torch.float32, torch.int64),     # fits shared memory
+    (40_000, 88, 100_001, torch.float32, torch.int64),    # an 'xyz' ocean row
+    (5_000, 22, 100_001, torch.float32, torch.int32),     # 88 B: 8-byte copies
+    (5_000, 23, 100_001, torch.float32, torch.int64),     # 92 B: 4-byte copies
+    (3_000, 5, 100_001, torch.float16, torch.int64),      # 10 B: 2-byte copies
+    (3_000, 48, 100_001, torch.float16, torch.int32),     # compensated data
+    (100, 2_000, 3_001, torch.float32, torch.int32),      # one row a stage
+    (7, 3, 5, torch.int32, torch.int32)]
+
+
+def _gather_case(R, C, N, dtype, idx_dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    table = (torch.randn((R, C), generator=g) * 100).to(dtype)
+    if dtype.is_floating_point:
+        table[0, 0] = float("nan")
+        table[min(1, R - 1), C - 1] = -0.0
+    idx = torch.randint(-3, R + 3, (N,), generator=g).to(idx_dtype)
+    return table.to(device), idx.to(device)
+
+
+def test_gather_on_cpu_tensors_takes_the_plain_version(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor must not reach the kernel")
+    monkeypatch.setattr(gather, "load_library", no_build)
+    counts = (gather.gather_rows_async.launches,
+              gather.gather_rows_smem.launches)
+    table, idx = _gather_case(300, 24, 1001, torch.float32, torch.int32,
+                              "cpu")
+    want = gather.gather_rows_plain(table, idx)
+    assert gather_ab.bit_equal(gather.gather_rows_async(table, idx), want)
+    assert gather_ab.bit_equal(gather.gather_rows_smem(table, idx), want)
+    assert counts == (gather.gather_rows_async.launches,
+                      gather.gather_rows_smem.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_gather_kernels_bit_equal_to_plain_on_card(case):
+    """Both kernels against ``index_select`` on the card, bit for bit (NaN
+    payloads and signed zeros included), out-of-range indices clamped, the
+    ragged tail masked; each launch counted once."""
+    _card()
+    R, C, N, dtype, idx_dtype = case
+    table, idx = _gather_case(R, C, N, dtype, idx_dtype, "cuda")
+    want = gather.gather_rows_plain(table, idx)
+    before = gather.gather_rows_async.launches
+    got = gather.gather_rows_async(table, idx)
+    torch.cuda.synchronize()
+    assert gather.gather_rows_async.launches == before + 1
+    assert gather_ab.bit_equal(got, want)
+    if R * C * table.element_size() <= gather.SMEM_TABLE_MAX_BYTES:
+        before = gather.gather_rows_smem.launches
+        got = gather.gather_rows_smem(table, idx)
+        torch.cuda.synchronize()
+        assert gather.gather_rows_smem.launches == before + 1
+        assert gather_ab.bit_equal(got, want)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            gather.gather_rows_smem(table, idx)
+
+
+@pytest.mark.gpu
+def test_gather_kernels_on_a_misaligned_view_and_no_indices():
+    """A table that starts 4 bytes into an allocation takes the 4-byte
+    copies; an empty index launches nothing."""
+    _card()
+    base = torch.randn(1 + 1000 * 24, device="cuda")
+    table = base[1:].view(1000, 24)
+    assert table.data_ptr() % 16 == 4 and table.is_contiguous()
+    idx = torch.randint(0, 1000, (50_001,), device="cuda")
+    want = gather.gather_rows_plain(table, idx)
+    assert gather_ab.bit_equal(gather.gather_rows_async(table, idx), want)
+    assert gather_ab.bit_equal(gather.gather_rows_smem(table, idx), want)
+    before = gather.gather_rows_async.launches
+    empty = gather.gather_rows_async(table, idx[:0])
+    assert tuple(empty.shape) == (0, 24)
+    assert gather.gather_rows_async.launches == before
+
+
+@pytest.mark.gpu
+def test_gather_ab_tool_on_card(capsys):
+    _card()
+    assert gather_ab.main(["2000", "24", "100000"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("bit-equal to A") == 2 and "CUDA events" in out

@@ -48,6 +48,33 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_the_sampler_slice_is_covered():
+    """The modules of the packed-row sampler slice and the ``tools``
+    sub-package are among the sources checked above."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("ops/gather.py", "ops/cuda_build.py", "ops/interp.py",
+                 "tools/__init__.py", "tools/gather_ab.py", "interop.py",
+                 "fields/grid.py", "fields/environment.py"):
+        assert name in have, name
+    assert os.path.exists(os.path.join(PORT, "csrc", "row_gather.cu"))
+
+
+def test_gather_tool_runs_with_jax_unimportable():
+    """``python -m opendrift_tpu_torch.tools.gather_ab`` on the CPU, in a
+    process where JAX and the JAX package cannot be imported."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'opendrift_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from opendrift_tpu_torch.tools import gather_ab\n"
+        "sys.exit(gather_ab.main(['200', '6', '1000', '--device', 'cpu']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("bit-equal to A") == 2
+
+
 def test_imports_with_jax_unimportable():
     code = (
         "import sys, importlib, pkgutil\n"

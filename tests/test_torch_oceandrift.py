@@ -191,18 +191,34 @@ def test_default_diffusivity_model_runs_and_matches_jax():
         _assert_close(ot.result[var].values, oj.result[var].values, var)
 
 
-def test_reader_served_profiles_still_raise():
-    """A reader that serves the diffusivity needs ``sample_profiles``,
-    which is not ported: the run says so before its first step."""
-    from opendrift_tpu_torch.models import OceanDrift
-    from opendrift_tpu_torch.fields import ConstantReader
-    o = OceanDrift(loglevel=40, device="cpu")
-    o.add_reader(ConstantReader({"ocean_vertical_diffusivity": 0.01}))
+def _served_diffusivity_run(pkg):
+    if pkg == "jax":
+        from opendrift_tpu.models import OceanDrift
+        from opendrift_tpu.fields import ConstantReader
+        o = OceanDrift(loglevel=40)
+    else:
+        from opendrift_tpu_torch.models import OceanDrift
+        from opendrift_tpu_torch.fields import ConstantReader
+        o = OceanDrift(loglevel=40, device="cpu")
+    o.add_reader(ConstantReader({"ocean_vertical_diffusivity": 0.01,
+                                "sea_floor_depth_below_sea_level": 60.0}))
     o.set_config("environment:fallback:land_binary_mask", 0)
     o.set_config("drift:vertical_mixing", True)
-    o.seed_elements(lon=4.0, lat=60.0, number=8, z=-5.0, time=T0)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        o.run(steps=2, time_step=900)
+    o.seed_elements(lon=4.0, lat=60.0, number=56, z=-5.0, time=T0)
+    o.run(steps=3, time_step=900)
+    return o
+
+
+def test_reader_served_profiles_still_raise():
+    """A reader that serves the diffusivity once raised here, for want of
+    ``sample_profiles``.  It runs now: the profile comes through the base
+    reader's level loop into the profile kernel's plain version, and the
+    depths spread as the JAX package's do."""
+    ot = _served_diffusivity_run("torch")
+    oj = _served_diffusivity_run("jax")
+    z = ot.result["z"].values
+    assert z.shape == (56, 4) and len(np.unique(z[:, -1])) > 40
+    _assert_close(z, oj.result["z"].values, "z")
 
 
 def _stranding_run(pkg, action):
@@ -331,3 +347,311 @@ def test_outfile_round_trip(tmp_path, buffer_length):
         for var in ("lon", "lat", "z", "status"):
             np.testing.assert_array_equal(np.asarray(back[var]),
                                           o.result[var].values)
+
+
+# ------------------------------------------ the packed-row sampler path ----
+
+def _coast_forcing(seed=0, nx=30, ny=24, nz=6, nt=4):
+    """A 3D ocean with currents setting towards a coast in the east, a 3D
+    diffusivity that falls with depth, a seafloor and a landmask in one
+    reader, and a wind reader."""
+    r = np.random.default_rng(seed)
+    x = np.linspace(3.0, 5.0, nx)
+    y = np.linspace(59.0, 60.5, ny)
+    depths = np.array([0, 2, 5, 10, 20, 40][:nz], np.float32)
+    times = [T0 + timedelta(hours=3 * i) for i in range(nt)]
+    decay = np.exp(-depths / 15.0)[None, :, None, None]
+    land = np.zeros((ny, nx), np.float32)
+    land[:, nx - 6:] = 1.0
+    land[8:12, nx - 9:] = 1.0
+    ocean = {
+        "x_sea_water_velocity": (0.5 * decay + 0.1 * r.standard_normal(
+            (nt, nz, ny, nx))).astype(np.float32),
+        "y_sea_water_velocity": (0.15 * r.standard_normal(
+            (nt, nz, ny, nx))).astype(np.float32),
+        "ocean_vertical_diffusivity": (0.02 * decay * r.uniform(
+            0.5, 1.5, (nt, nz, ny, nx))).astype(np.float32),
+        "sea_floor_depth_below_sea_level":
+            r.uniform(30, 80, (ny, nx)).astype(np.float32),
+        "land_binary_mask": land}
+    wind = {"x_wind": (5 + 3 * r.standard_normal((nt, ny, nx))).astype(
+                np.float32),
+            "y_wind": (3 * r.standard_normal((nt, ny, nx))).astype(
+                np.float32)}
+    return ocean, wind, x, y, depths, times
+
+
+def _sampler_sim(pkg, config=(), cls=None, diffusivity=True, n=N):
+    ocean, wind, x, y, depths, times = _coast_forcing()
+    if not diffusivity:
+        del ocean["ocean_vertical_diffusivity"]
+    if pkg == "jax":
+        from opendrift_tpu.models import OceanDrift
+        from opendrift_tpu.fields import ArrayReader
+        o = (cls or OceanDrift)(loglevel=40)
+    else:
+        from opendrift_tpu_torch.models import OceanDrift
+        from opendrift_tpu_torch.fields import ArrayReader
+        o = (cls or OceanDrift)(loglevel=40, device="cpu")
+    o.add_reader(ArrayReader(ocean, x, y, times, depths=depths, name="ocean"))
+    o.add_reader(ArrayReader(wind, x, y, times, name="wind"))
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "windspeed_Large1994")
+    for key, value in dict(config).items():
+        o.set_config(key, value)
+    r = np.random.default_rng(1)
+    o.seed_elements(lon=r.uniform(3.9, 4.6, n), lat=r.uniform(59.2, 60.3, n),
+                    z=-r.uniform(0, 20, n), time=times[0])
+    return o
+
+
+def _sampler_run(pkg, config=(), **kw):
+    o = _sampler_sim(pkg, config, **kw)
+    o.run(duration=timedelta(hours=7), time_step=900, time_step_output=3600)
+    return o
+
+
+def _assert_runs_close(ot, oj, min_stranded=1):
+    status = ot.result["status"].values
+    np.testing.assert_array_equal(status,
+                                  np.asarray(oj.result["status"].values))
+    stranded = status[:, -1] == ot.status_categories.index("stranded")
+    assert min_stranded <= stranded.sum() < status.shape[0]
+    for var in ("lon", "lat", "z"):
+        _assert_close(ot.result[var].values, oj.result[var].values, var)
+
+
+@pytest.mark.parametrize("bisection", ["block", "refetch"])
+def test_single_fetch_run_matches_jax(bisection):
+    """RK4 on one corner block a step (drift:advection_single_fetch), the
+    step's environment from the same block, and stranding whose bisection
+    probes re-read the block or refetch the mask."""
+    config = {"drift:advection_single_fetch": True,
+              "general:coastline_bisection": bisection}
+    ot = _sampler_run("torch", config)
+    oj = _sampler_run("jax", config)
+    assert ot.env.readers["ocean"]._sampler.pair_mode == "xyz"
+    assert ot.env.uv_block_plan_index() == oj.env.uv_block_plan_index() == 0
+    _assert_runs_close(ot, oj, min_stranded=5)
+    # and it is a different computation from the multi-fetch run, though a
+    # close one: stage displacements stay inside a cell
+    om = _sampler_run("torch")
+    d = np.abs(ot.result["lon"].values - om.result["lon"].values)
+    assert 0 < np.nanmax(d) < 1e-2
+
+
+def test_single_fetch_gathers_one_block_a_step(monkeypatch):
+    """Row gathers of one interval, counted: the multi-fetch step takes 5
+    (the ocean fetch, three RK4 stage refetches, the wind); the
+    single-fetch step 2 (one corner block, the wind), plus the mask
+    fetches of a 'refetch' bisection where something strands."""
+    from opendrift_tpu_torch.fields import grid as tgrid
+    from opendrift_tpu_torch.ops import interp as tinterp
+    calls = []
+    real = tinterp.take_rows
+
+    def counted(packed, lin):
+        calls.append(tuple(packed.shape))
+        return real(packed, lin)
+    monkeypatch.setattr(tinterp, "take_rows", counted)
+    monkeypatch.setattr(tgrid, "take_rows", counted)
+    counts = {}
+    for name, config in (
+            ("multi", {}),
+            ("single", {"drift:advection_single_fetch": True,
+                        "general:coastline_bisection": "block"})):
+        o = _sampler_sim("torch", config, diffusivity=False)
+        advance, _, state, key = o.prepare_run(900.0, 4, total_steps=4)
+        states = o.env.build_device_states()
+        calls.clear()
+        advance(state, states, np.float32(0.0), key)
+        counts[name] = len(calls) / 4
+    assert counts["single"] == 2.0
+    # 5 a step, and 3 mask refetches in each step where something strands
+    extra = counts["multi"] * 4 - 20
+    assert extra >= 0 and extra % 3 == 0, counts
+
+
+def test_environment_diffusivity_reader_run_matches_jax(monkeypatch):
+    """'environment' with a reader that serves a 3D diffusivity: profiles of
+    ``profile_levels`` levels a step through ``sample_profiles`` /
+    ``get_profiles`` into the profile kernel (its plain version here)."""
+    from opendrift_tpu_torch.ops import mixing
+    config = {"vertical_mixing:diffusivitymodel": "environment",
+              "vertical_mixing:profile_levels": 11,
+              "drift:profile_depth": 40.0,
+              "drift:advection_single_fetch": True,
+              "general:coastline_bisection": "block"}
+    used = []
+    real = mixing.visser_mixing_profile_plain
+
+    def counted(*args, **kw):
+        used.append(tuple(args[3].shape))
+        return real(*args, **kw)
+    monkeypatch.setattr(mixing, "visser_mixing_profile_plain", counted)
+    ot = _sampler_run("torch", config)
+    assert used == [(11, N)] * 28           # once a step, (levels, elements)
+    oj = _sampler_run("jax", config)
+    _assert_runs_close(ot, oj)
+    z = ot.result["z"].values
+    assert not np.array_equal(z[:, 0], z[:, -1])
+
+
+@pytest.mark.parametrize("model", ["windspeed_Large1994", "environment",
+                                   "constant"])
+def test_generic_loop_matches_kernels_and_jax(model):
+    """vertical_mixing:use_pallas=False takes the per-substep loop.  With
+    the base hooks it repeats the kernels' plain versions operation for
+    operation (equal to the bit here, where both are the same torch calls)
+    and matches the JAX package's loop to the slice tolerance."""
+    config = {"vertical_mixing:diffusivitymodel": model,
+              "vertical_mixing:profile_levels": 11,
+              "environment:fallback:ocean_vertical_diffusivity": 1e-3}
+    loop = dict(config, **{"vertical_mixing:use_pallas": False})
+    ot = _sampler_run("torch", loop, diffusivity=model == "environment")
+    ok = _sampler_run("torch", config, diffusivity=model == "environment")
+    for var in ("lon", "lat", "z", "status"):
+        np.testing.assert_array_equal(ot.result[var].values,
+                                      ok.result[var].values)
+    oj = _sampler_run("jax", loop, diffusivity=model == "environment")
+    _assert_runs_close(ot, oj)
+
+
+def test_tsprofiles_run_matches_jax():
+    """vertical_mixing:TSprofiles asks for profiles every step and sends
+    the mixing through the per-substep loop; OceanDrift's own terminal
+    velocity ignores T and S, so the depths are the loop's."""
+    config = {"vertical_mixing:TSprofiles": True,
+              "vertical_mixing:diffusivitymodel": "environment",
+              "vertical_mixing:profile_levels": 11}
+    ot = _sampler_run("torch", config)
+    oj = _sampler_run("jax", config)
+    _assert_runs_close(ot, oj)
+
+
+def _sticky(base):
+    """A subclass that overrides a substep hook: elements that reach the
+    seafloor stay there (``moving`` is carried through the loop)."""
+    where = torch.where if base.__module__.startswith(
+        "opendrift_tpu_torch") else __import__("jax").numpy.where
+
+    class Sticky(base):
+        def bottom_interaction(self, ctx, mix, zmin):
+            mix["moving"] = where(mix["z"] <= zmin, 0.0, mix["moving"])
+            return mix
+    return Sticky
+
+
+def test_overridden_hook_takes_the_generic_loop_and_matches_jax():
+    from opendrift_tpu.models import OceanDrift as JOceanDrift
+    from opendrift_tpu_torch.models import OceanDrift as TOceanDrift
+    config = {"environment:fallback:sea_floor_depth_below_sea_level": 12.0}
+    runs = {}
+    for pkg, base in (("torch", TOceanDrift), ("jax", JOceanDrift)):
+        ocean, wind, x, y, depths, times = _coast_forcing()
+        del ocean["sea_floor_depth_below_sea_level"]
+        o = _sticky(base)(loglevel=40, **(
+            {"device": "cpu"} if pkg == "torch" else {}))
+        reader = __import__(base.__module__.split(".")[0] + ".fields",
+                            fromlist=["ArrayReader"]).ArrayReader
+        o.add_reader(reader(ocean, x, y, times, depths=depths))
+        o.set_config("drift:advection_scheme", "runge-kutta4")
+        o.set_config("drift:vertical_mixing", True)
+        o.set_config("vertical_mixing:diffusivitymodel", "environment")
+        o.set_config("vertical_mixing:profile_levels", 11)
+        for key, value in config.items():
+            o.set_config(key, value)
+        r = np.random.default_rng(1)
+        o.seed_elements(lon=r.uniform(3.6, 4.2, N),
+                        lat=r.uniform(59.2, 60.3, N), z=-r.uniform(0, 12, N),
+                        terminal_velocity=-0.002, time=times[0])
+        o.run(duration=timedelta(hours=4), time_step=900,
+              time_step_output=3600)
+        runs[pkg] = o
+    moving = runs["torch"].result["moving"].values[:, -1]
+    assert 0 < (moving == 0).sum() < N        # some stuck, not all
+    np.testing.assert_array_equal(
+        moving, np.asarray(runs["jax"].result["moving"].values)[:, -1])
+    for var in ("lon", "lat", "z"):
+        _assert_close(runs["torch"].result[var].values,
+                      runs["jax"].result[var].values, var)
+
+
+def test_prefetch_thread_gives_the_same_run(monkeypatch):
+    """Seven windows packed on the worker thread beside the steps, against
+    the same run with every window packed by the main thread: equal to the
+    bit, and the thread was used for every window but the first and the
+    final snapshot's."""
+    config = {"drift:advection_single_fetch": True,
+              "vertical_mixing:diffusivitymodel": "environment",
+              "vertical_mixing:profile_levels": 11}
+    with_thread = _sampler_sim("torch", config)
+    started = []
+    real = with_thread.env.prefetch_device_states
+
+    def counting(a, b):
+        started.append((a, b))
+        return real(a, b)
+    monkeypatch.setattr(with_thread.env, "prefetch_device_states", counting)
+    with_thread.run(duration=timedelta(hours=7), time_step=900,
+                    time_step_output=3600)
+    assert len(started) == 6
+    assert with_thread.env._prefetch is None
+    assert with_thread.env.pack_seconds > 0.0
+    without = _sampler_sim("torch", config)
+    monkeypatch.setattr(without.env, "prefetch_device_states",
+                        lambda a, b: None)
+    without.run(duration=timedelta(hours=7), time_step=900,
+                time_step_output=3600)
+    for var in ("lon", "lat", "z", "status"):
+        np.testing.assert_array_equal(with_thread.result[var].values,
+                                      without.result[var].values)
+
+
+def test_prefetch_failure_surfaces_at_the_join():
+    """What the worker thread raises outside a reader's own packing is
+    raised again by the thread that takes the window."""
+    o = _sampler_sim("torch")
+    o.prepare_run(900.0, 4, total_steps=4)
+
+    def broken(a, b):
+        raise RuntimeError("packing failed")
+    o.env._pack_host_states = broken
+    o.env.prefetch_device_states(None, None)
+    with pytest.raises(RuntimeError, match="packing failed"):
+        o.env.build_device_states(None, None)
+    assert o.env._prefetch is None
+
+
+@pytest.mark.parametrize("single_fetch", [True, False])
+def test_trajectories_bit_identical_across_tiers(single_fetch, monkeypatch):
+    """OPENDRIFT_XY_PAIR=0 puts every reader on the 'x' tier, =1 on the
+    wide one: more gathers, the same arithmetic, the same trajectories to
+    the bit (the case of the JAX package's tests/test_pair_hint.py)."""
+    results = {}
+    for flag, tier in (("0", "x"), ("1", "xyz")):
+        monkeypatch.setenv("OPENDRIFT_XY_PAIR", flag)
+        o = _sampler_run("torch", {
+            "drift:advection_single_fetch": single_fetch,
+            "general:coastline_bisection": "block"})
+        assert o.env.readers["ocean"]._sampler.pair_mode == tier
+        results[flag] = o.result
+    for var in ("lon", "lat", "z", "status"):
+        np.testing.assert_array_equal(results["0"][var].values,
+                                      results["1"][var].values)
+
+
+def test_surface_truncated_single_fetch_gets_the_xy_tier():
+    """drift:truncate_ocean_model_below_m=0 packs the surface level alone:
+    Z collapses to 1, the tier is 'xy' (never 'xyz' without a z+1 plane),
+    a corner block is one gather, and the run matches the JAX package."""
+    config = {"drift:advection_single_fetch": True,
+              "drift:truncate_ocean_model_below_m": 0.0,
+              "drift:vertical_mixing": False}
+    ot = _sampler_run("torch", config, diffusivity=False)
+    oj = _sampler_run("jax", config, diffusivity=False)
+    for o in (ot, oj):
+        s = o.env.readers["ocean"]._sampler
+        assert (s.pair_mode, s.Z) == ("xy", 1)
+    _assert_runs_close(ot, oj)

@@ -545,20 +545,93 @@ def test_openoil_run_with_a_coast_matches_jax(monkeypatch):
                                atol=0.02)
 
 
-def test_fast_path_conditions_raise_not_fall_back():
-    """Where the oil kernel does not apply the port has no generic loop
-    yet and says so."""
-    o = _oil_simulation("torch", n=16, model="constant")
-    with pytest.raises(NotImplementedError, match="A.12"):
+GENERIC_LOOP_CASES = {
+    "constant": dict(model="constant"),
+    "use_pallas_off": {"vertical_mixing:use_pallas": False},
+    "TSprofiles": {"vertical_mixing:TSprofiles": True,
+                   "vertical_mixing:profile_levels": 11},
+    "TSprofiles_keep_diameter": {"vertical_mixing:TSprofiles": True,
+                                 "vertical_mixing:profile_levels": 11},
+}
+
+
+def test_fast_path_conditions_raise_not_fall_back(monkeypatch):
+    """Where the oil kernel does not apply the step once raised; it takes
+    the generic per-substep loop now, and never the oil kernel's wrapper
+    or its plain version."""
+    def refuse(*args, **kw):
+        raise AssertionError("the oil kernel's path was taken")
+    monkeypatch.setattr(mixing, "visser_mixing_oil", refuse)
+    monkeypatch.setattr(mixing, "visser_mixing_oil_plain", refuse)
+    for case in ("constant", "use_pallas_off", "TSprofiles"):
+        o = _oil_simulation("torch", n=16, **GENERIC_LOOP_CASES[case])
         o.run(duration=timedelta(hours=1), time_step=900)
-    o = _oil_simulation("torch", n=16, **{"vertical_mixing:use_pallas":
-                                          False})
-    with pytest.raises(NotImplementedError, match="A.12"):
-        o.run(duration=timedelta(hours=1), time_step=900)
-    o = _oil_simulation("torch", n=16, **{"vertical_mixing:TSprofiles":
-                                          True})
-    with pytest.raises(NotImplementedError, match="A.3"):
-        o.run(duration=timedelta(hours=1), time_step=900)
+        z = o.result["z"].values
+        assert np.isfinite(z[:, -1]).all() and (z[:, -1] < 0).any(), case
+    with pytest.raises(AssertionError, match="oil kernel's path"):
+        _oil_simulation("torch", n=16).run(duration=timedelta(hours=1),
+                                           time_step=900)
+
+
+@pytest.mark.parametrize("case", list(GENERIC_LOOP_CASES))
+def test_generic_loop_matches_jax(case):
+    """The per-substep loop with ``surface_wave_mixing`` (entrainment draws
+    keyed by element ID and the substep key) and, for TSprofiles, the
+    Tkalich rise velocity at the T and S interpolated from 11-level
+    profiles at the element's depth, against the JAX package's loop (which
+    the JAX package takes on the CPU whenever its kernel is not forced).
+    The loop draws otherwise than the oil kernel, so it is held against
+    the loop, never against the kernel."""
+    runs = {}
+    for pkg in ("jax", "torch"):
+        o = _oil_simulation(pkg, **GENERIC_LOOP_CASES[case])
+        if case.endswith("keep_diameter"):
+            o.keep_droplet_diameter = True
+        o.run(duration=timedelta(hours=3), time_step=900,
+              time_step_output=3600)
+        runs[pkg] = o
+    oj, ot = runs["jax"], runs["torch"]
+    np.testing.assert_array_equal(ot.result["status"].values,
+                                  np.asarray(oj.result["status"].values))
+    for var in ("lon", "lat", "z", "diameter", "mass_oil", "mass_evaporated",
+                "mass_dispersed", "water_fraction", "terminal_velocity"):
+        _assert_slice_close(ot.result[var].values, oj.result[var].values, var)
+    z = ot.result["z"].values[:, -1]
+    assert (z < 0).any() and (z == 0).any()          # entrained and not
+    if case.startswith("TSprofiles"):
+        assert ot.env.required_profiles == [
+            "sea_water_temperature", "sea_water_salinity"]
+
+
+def test_surface_wave_mixing_matches_jax():
+    """One call of the hook on the same context: the same elements
+    entrained to the same depths with the same diameters (the draws are
+    integer hashes: equal to the bit)."""
+    _, cj, _, ct = _contexts()
+    for ctx, xp in ((ct, torch), (cj, jnp)):
+        n = ctx.state.data["z"].shape[0]
+        r = np.random.default_rng(5)
+        asarray = (lambda a: torch.as_tensor(a)) if xp is torch \
+            else jnp.asarray
+        ctx._oil_entrainment_probability = asarray(
+            r.uniform(0, 0.6, n).astype(np.float32))
+        ctx._droplet_diameter_if_entrained = asarray(
+            r.uniform(1e-5, 2e-3, n).astype(np.float32))
+        z = -r.uniform(0, 5, n).astype(np.float32)
+        z[::2] = 0.0
+        ctx._mix = {"z": asarray(z),
+                    "diameter": asarray(np.full(n, 1e-4, np.float32))}
+    mt = ct.sim.surface_wave_mixing(ct, dict(ct._mix), 60.0,
+                                    rng.fold_in(rng.PRNGKey(3), 7))
+    mj = cj.sim.surface_wave_mixing(cj, dict(cj._mix), 60.0,
+                                    jax.random.fold_in(
+                                        jax.random.PRNGKey(3), 7))
+    zt, zj = mt["z"].numpy(), np.asarray(mj["z"])
+    assert ((zt < 0) & (np.asarray(ct._mix["z"]) == 0)).sum() > 10
+    np.testing.assert_array_equal(zt < 0, zj < 0)
+    np.testing.assert_allclose(zt, zj, rtol=1e-6)
+    np.testing.assert_array_equal(mt["diameter"].numpy(),
+                                  np.asarray(mj["diameter"]))
 
 
 # --------------------------------------------------- the reference golden -
