@@ -13,12 +13,25 @@ printing its own line:
 2. kernels: each hand-written kernel (the windspeed, profile and oil
    mixing kernels, and the two row-gather kernels) against its plain
    PyTorch version on the card, at the main path's shapes (2M elements,
-   15 substeps; 2M row indices), with its time, the plain version's time,
-   its bound and, for the gathers, the one library call that computes the
-   same function (``index_select``, which is also their plain version);
+   15 substeps; 2M row indices), with its time (``ms``: one wrapper call
+   at a time between CUDA events; ``device_ms``: calls queued back to back
+   behind a spin on the card), the plain version's time, its bound and,
+   for the gathers, the one library call that computes the same function
+   (``index_select``, which is also their plain version).
+   The mixing kernels must equal their plain versions by value, edge cases
+   included (a NaN seafloor, mixed layers thinner than 1 m and outside the
+   reciprocal's range, frozen elements), also at ragged sizes (N = 1, 2,
+   255, 257, 2,000,001); the reciprocal quotient of the windspeed and oil
+   kernels against the division for every mixed-layer depth of its range;
+   for the windspeed and oil kernels the substep
+   loop's SASS instructions by pipe and the issue bound they set
+   (``opendrift_tpu_torch/tools/sass.py``; "not available" without a
+   ``cuobjdump``);
 3. main path: ``OceanDrift(device="cuda")`` on a synthetic 3D z-level
    ``ArrayReader``, 2M elements, RK4 + Visser mixing (windspeed_Large1994,
-   through the windspeed kernel), then a shorter run with the 'constant'
+   through the windspeed kernel) after one untimed interval that takes the
+   process's one-time costs (its rate is printed as the cold one), then a
+   shorter run with the 'constant'
    diffusivity (through the profile kernel); each run is checked to have
    gone through its kernel, and one interval of the first is profiled
    (kernels by device time, the device's busy share);
@@ -95,12 +108,10 @@ OPS_PER_SUBSTEP = {"windspeed_Sundby1983": 48 + 3 * 4,
 OIL_EXTRA_OPS = 2 * 12 + 10 + 7
 
 # kernel against its plain version on the card: both evaluate the same
-# float32 expressions in the same order with no contracted multiply-adds,
-# so they are expected to agree to the bit; the bound allows a rare
-# nearest-level flip (round(|z|)) from a one-ulp difference
-KERNEL_MEDIAN_ATOL = 1e-6        # m
-KERNEL_OUTLIER_ATOL = 1e-4       # m
-KERNEL_OUTLIER_SHARE = 1e-4
+# float32 expressions in the same order with no contracted multiply-adds
+# (the kernels' reciprocal quotient is the correctly rounded division), so
+# the mixing kernels must equal them by value: no tolerance
+RAGGED_SIZES = (1, 2, 255, 257, 2_000_001)
 # whole slice, card against CPU: transcendental functions differ by an
 # ulp or so between the two, which moves a few elements across a
 # nearest-level boundary of the mixing; the same bounds as
@@ -168,23 +179,6 @@ def agree(a, b, median_atol, outlier_atol, outlier_share, nan_share=0.0):
     return float(d.max()), bool(ok)
 
 
-def cuda_ms(fn, warmup=3, reps=20):
-    """Median milliseconds of ``fn()`` on the card (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def power_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -195,85 +189,40 @@ def power_line():
 
 # ------------------------------------------------------------- phase 2 ----
 
-def kernel_inputs(n, device, seed=0, profiles=True):
-    """Per-element mixing inputs at the main path's ranges: depths over
-    the top 30 m (5% exactly at the surface), a few frozen elements, small
-    terminal velocities, winds to 20 m/s, mixed layers of 10-60 m,
-    seafloors from 5 m (so reflections happen), IDs above 2^24."""
-    import torch
-    r = np.random.default_rng(seed)
-    z = -r.uniform(0.0, 30.0, n)
-    z[r.random(n) < 0.05] = 0.0
-    arrays = {
-        "z": z, "moving": (r.random(n) > 0.02).astype(np.float64),
-        "w": r.normal(0.0, 1e-4, n), "wind": r.uniform(0.0, 20.0, n),
-        "mld": r.uniform(10.0, 60.0, n), "zmin": -r.uniform(5.0, 100.0, n)}
-    t = {k: torch.as_tensor(v.astype(np.float32), device=device)
-         for k, v in arrays.items()}
-    t["z"] = torch.maximum(t["z"], t["zmin"])
-    t["elem"] = torch.as_tensor(
-        r.integers(1 << 24, (1 << 31) - 1, n, dtype=np.int64).astype(
-            np.int32), device=device)
-    seed_u32 = int(r.integers(0, 1 << 32))
-    if not profiles:
-        return t, seed_u32, None
-    # a 'constant'-like profile pair plus a depth-varying one: K falls
-    # with depth, gradK its -d/d(level) over spacing h
-    L = PROFILE_LEVELS
-    h = 2.0
-    decay = np.exp(-np.arange(L) * h / 20.0)
-    kprof = (1e-2 * decay[:, None] * r.uniform(0.5, 1.5, n)[None]).astype(
-        np.float32)
-    gradk = -np.gradient(kprof, axis=0) / h
-    t["Kprof"] = torch.as_tensor(kprof, device=device)
-    t["gradK"] = torch.as_tensor(gradk.astype(np.float32), device=device)
-    return t, seed_u32, h
+def must_equal(report, name, case, got, want, **fields):
+    """Report a mixing kernel's comparison with its plain version (through
+    ``report``, which takes what :func:`log` takes) and raise unless every
+    output is equal by value, NaN where and only where the other is NaN.
+    Returns the largest difference (0.0)."""
+    from opendrift_tpu_torch.tools.kernel_check import max_abs_err, same
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    equal = all(same(g, w) for g, w in zip(got, want))
+    report("kernel_check", kernel=name, **case, max_abs_err=err, equal=equal,
+           elements=int(got[0].shape[0]), **fields)
+    if not equal:
+        raise AssertionError(f"{name} {case} differs from its plain "
+                             f"version: {err}")
+    return err
 
 
-def oil_kernel_inputs(n, device, seed=1):
-    """The further per-element inputs of the oil kernel, beside those of
-    :func:`kernel_inputs`: 30% of the elements exactly at the surface,
-    entrainment probabilities over (0, 0.3) so that entrainment happens,
-    diameters of 10 um to 2 mm with the schema's default 0 for a third,
-    intrusion depths to 6 m, and the Tkalich factors of oils of 800 to
-    990 kg/m3 in water of 1e-6 to 1.8e-6 m2/s."""
-    import torch
-    r = np.random.default_rng(seed)
-    t, seed_u32, _ = kernel_inputs(n, device, profiles=False)
-    z = -r.uniform(0.0, 30.0, n)
-    z[r.random(n) < 0.3] = 0.0
-    diam = r.uniform(1e-5, 2e-3, n)
-    diam[r.random(n) < 0.33] = 0.0
-    rhopr = r.uniform(0.8, 0.99, n)
-    nu_w = r.uniform(1e-6, 1.8e-6, n)
-    arrays = {"z": z, "diam": diam, "p_ent": r.uniform(0.0, 0.3, n),
-              "d_cand": r.uniform(1e-6, 3e-3, n), "zb": r.uniform(0.0, 6.0, n),
-              "kw": 2.0 * 9.81 * (1.0 - rhopr) / (9.0 * nu_w),
-              "kw2": np.sqrt(16.0 * 9.81 * (1.0 - rhopr) / 3.0),
-              "nu_w": nu_w}
-    for k, v in arrays.items():
-        t[k] = torch.as_tensor(v.astype(np.float32), device=device)
-    t["z"] = torch.maximum(t["z"], t["zmin"])
-    return t, seed_u32
-
-
-def check_oil_kernel(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
+def check_oil_kernel(device, n=N_KERNEL, ntimes=NTIMES, timed=True,
+                     report=log):
     """The oil mixing kernel against its plain version on ``device``, for
     the three windspeed models x keep_diam x mixing_at_surface: both
-    outputs equal by value (``torch.equal``; +0 and -0 count as equal).
-    Returns its row of the result line (Large1994, the main path's
-    options), or the largest error when not ``timed``."""
+    outputs equal by value (+0 and -0 count as equal; NaN where the other
+    is NaN).  Returns its row of the result line (Large1994, the main
+    path's options), or the largest error when not ``timed``."""
     import torch
     from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.tools.kernel_check import (
+        OIL_NAMES, cuda_ms, device_ms, oil_kernel_inputs)
     t, seed = oil_kernel_inputs(n, device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    names = ("z", "diam", "moving", "wind", "mld", "zmin", "p_ent", "d_cand",
-             "zb", "kw", "kw2", "nu_w")
 
     def oil(model, at_surface, keep_diam, plain):
         kw = dict(ntimes=ntimes, dt_mix=60.0, model=model, bg=1.2e-5,
                   mixing_at_surface=at_surface, keep_diam=keep_diam)
-        args = [t[k] for k in names]
+        args = [t[k] for k in OIL_NAMES]
         if plain:
             return mixing.visser_mixing_oil_plain(*args, t["elem"], seed,
                                                   **kw)
@@ -286,19 +235,12 @@ def check_oil_kernel(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
                 kz, kd = oil(model, at_surface, keep_diam, False)
                 pz, pd = oil(model, at_surface, keep_diam, True)
                 sync()
-                err = float((kz - pz).abs().max())
-                err_d = float((kd - pd).abs().max())
-                equal = bool(torch.equal(kz, pz) and torch.equal(kd, pd))
-                log("kernel_check", kernel="visser_mixing_oil", model=model,
-                    mixing_at_surface=at_surface, keep_diam=keep_diam,
-                    max_abs_err=err, max_abs_err_diameter=err_d, equal=equal,
+                worst = max(worst, must_equal(
+                    report, "visser_mixing_oil",
+                    dict(model=model, mixing_at_surface=at_surface,
+                         keep_diam=keep_diam), (kz, kd), (pz, pd),
                     entrained_share=float((kd != t["diam"]).float().mean()),
-                    submerged_share=float((kz < 0).float().mean()))
-                if not equal:
-                    raise AssertionError(
-                        f"visser_mixing_oil {model} differs from its plain "
-                        f"version: z {err}, diameter {err_d}")
-                worst = max(worst, err, err_d)
+                    submerged_share=float((kz < 0).float().mean())))
     if not timed:
         return worst
     model = "windspeed_Large1994"
@@ -306,6 +248,7 @@ def check_oil_kernel(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
     nbytes = n * (13 + 2) * 4
     nops = n * ntimes * (OPS_PER_SUBSTEP[model] + OIL_EXTRA_OPS)
     ms = cuda_ms(lambda: oil(model, False, False, False))
+    queued_ms = device_ms(lambda: oil(model, False, False, False))
     plain_ms = cuda_ms(lambda: oil(model, False, False, True), warmup=1,
                        reps=3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -316,17 +259,21 @@ def check_oil_kernel(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
            "launches": 0, "max_abs_err": worst, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None, "bytes": nbytes, "ops": nops}
+           "library_ms": None, "device_ms": queued_ms, "bytes": nbytes,
+           "ops": nops}
     log("kernel_time", **row)
     return row
 
 
-def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
-    """Every kernel against its plain version on ``device``; returns the
-    kernel rows of the result line (the main-path configuration's times:
-    windspeed_Large1994, no mixing at the surface)."""
+def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True, report=log):
+    """The windspeed and profile kernels against their plain versions on
+    ``device``, equal by value; returns the kernel rows of the result line
+    (the main-path configuration's times: windspeed_Large1994, no mixing
+    at the surface), or the largest errors when not ``timed``."""
     import torch
     from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.tools.kernel_check import (
+        cuda_ms, device_ms, kernel_inputs)
     t, seed, h = kernel_inputs(n, device)
     rows = {}
     errs = {"visser_mixing": 0.0, "visser_mixing_profile": 0.0}
@@ -354,13 +301,15 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
     def profile_levels_visited():
         """How many (level, element) pairs of Kprof/gradK the profile
         kernel reads on this data: substep i reads the level nearest the
-        depth after i substeps, the plain version's output at ntimes=i."""
+        depth after i substeps, the plain version's output at ntimes=i (a
+        NaN depth reads level 0)."""
         L = t["Kprof"].shape[0]
         visited = torch.zeros(t["Kprof"].shape, dtype=torch.bool,
                               device=device)
         for i in range(ntimes):
             z = t["z"] if i == 0 else profile(False, True, substeps=i)
-            zi = torch.clip(torch.round(-z / h).to(torch.int64), 0, L - 1)
+            zi = torch.clip(torch.round(-z / h).nan_to_num(0.0).to(
+                torch.int64), 0, L - 1)
             visited.scatter_(0, zi[None], True)
         return int(visited.sum())
 
@@ -369,28 +318,16 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
             k = windspeed(model, at_surface, False)
             p = windspeed(model, at_surface, True)
             sync()
-            err, ok = agree(k.cpu(), p.cpu(), KERNEL_MEDIAN_ATOL,
-                            KERNEL_OUTLIER_ATOL, KERNEL_OUTLIER_SHARE)
-            log("kernel_check", kernel="visser_mixing", model=model,
-                mixing_at_surface=at_surface, max_abs_err=err,
-                bit_equal=bool(torch.equal(k, p)))
-            if not ok:
-                raise AssertionError(f"visser_mixing {model} disagrees "
-                                     f"with its plain version: {err}")
-            errs["visser_mixing"] = max(errs["visser_mixing"], err)
+            errs["visser_mixing"] = max(errs["visser_mixing"], must_equal(
+                report, "visser_mixing",
+                dict(model=model, mixing_at_surface=at_surface), (k,), (p,)))
         k = profile(at_surface, False)
         p = profile(at_surface, True)
         sync()
-        err, ok = agree(k.cpu(), p.cpu(), KERNEL_MEDIAN_ATOL,
-                        KERNEL_OUTLIER_ATOL, KERNEL_OUTLIER_SHARE)
-        log("kernel_check", kernel="visser_mixing_profile",
-            mixing_at_surface=at_surface, max_abs_err=err,
-            bit_equal=bool(torch.equal(k, p)))
-        if not ok:
-            raise AssertionError(f"visser_mixing_profile disagrees with "
-                                 f"its plain version: {err}")
-        errs["visser_mixing_profile"] = max(errs["visser_mixing_profile"],
-                                            err)
+        errs["visser_mixing_profile"] = max(
+            errs["visser_mixing_profile"], must_equal(
+                report, "visser_mixing_profile", dict(mixing_at_surface=at_surface),
+                (k,), (p,)))
     if not timed:
         return errs
 
@@ -409,6 +346,7 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
             ("visser_mixing_profile", lambda p: profile(False, p), b2, o2,
              394)):
         ms = cuda_ms(lambda: run(False))
+        queued_ms = device_ms(lambda: run(False))
         plain_ms = cuda_ms(lambda: run(True), warmup=1, reps=3)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / FP32_OPS_PER_S * 1e3
@@ -419,12 +357,81 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True):
             "launches": 0, "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "ops": nops}
+            "library_ms": None, "device_ms": queued_ms, "bytes": nbytes,
+            "ops": nops}
         log("kernel_time", **rows[name])
     return rows
 
 
-def gather_row(name, line, ms, plain_ms, bound, err):
+def check_ragged_sizes(device, sizes=RAGGED_SIZES):
+    """The three mixing kernels against their plain versions at sizes that
+    leave a ragged last block (and at one element)."""
+    for n in sizes:
+        cases = []
+        errs = check_kernels(device, n=n, timed=False,
+                             report=lambda phase, **f: cases.append(f))
+        errs["visser_mixing_oil"] = check_oil_kernel(
+            device, n=n, timed=False,
+            report=lambda phase, **f: cases.append(f))
+        log("kernel_check_ragged", elements=n, cases=len(cases),
+            equal=all(c["equal"] for c in cases), max_abs_err=errs)
+
+
+def quotient_sweep():
+    """The windspeed and oil kernels' reciprocal quotient against the
+    float32 division on the card, bit for bit, for every float32
+    mixed-layer depth of the range that takes the reciprocal and every
+    numerator the walk can divide by it (some 1e13 quotients)."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    lo, hi = mixing.RECIPROCAL_MLD_RANGE
+    t = time.perf_counter()
+    compared, differing, where = mixing.reciprocal_quotient_sweep(lo, hi)
+    torch.cuda.synchronize()
+    log("quotient_sweep", mld_range=[lo, hi], quotients=compared,
+        differing=differing, first_differing=where,
+        seconds=time.perf_counter() - t)
+    if differing or compared == 0:
+        raise AssertionError(
+            f"the reciprocal quotient differs from the division for "
+            f"{differing} of {compared} quotients, first at (mld, "
+            f"numerator) = {where}")
+
+
+def sass_phase(rows, n=N_KERNEL, ntimes=NTIMES):
+    """The compiled substep loops of the windspeed and oil kernels
+    (Large1994, the main path's options): SASS instructions a substep by
+    pipe, and the issue bound they set at the SM clock read under load,
+    beside the rows' ``bound_ms`` (bytes and operations at the data sheet's
+    rates).  Without a ``cuobjdump`` the line says "not available"."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.tools import kernel_check, sass
+    z = torch.zeros(n, device="cuda")
+    mhz = kernel_check.sm_clock_mhz(lambda: mixing.visser_mixing(
+        z, 1.0, 0.0, 8.0, 40.0, -60.0, 7, ntimes=ntimes, dt_mix=60.0,
+        model="windspeed_Large1994", bg=1.2e-5, mixing_at_surface=False))
+    report = sass.mixing_report(mixing.build_library(), n, ntimes, mhz)
+    if isinstance(report, str):
+        log("sass", sass=report, sm_clock_mhz_under_load=mhz)
+        return
+    for name, loops in report.items():
+        # the first loop issues least: the path of every mixed-layer depth
+        # in the reciprocal's range; the other divides
+        fields = {"kernel": name, "sm_clock_mhz_under_load": mhz,
+                  "ms": rows[name]["ms"],
+                  "device_ms": rows[name]["device_ms"],
+                  "bound_ms": rows[name]["bound_ms"]}
+        for label, loop in zip(("substep", "substep_dividing"), loops):
+            fields[label] = loop["per_substep"]
+            fields[label + "_issue_bound_ms"] = loop.get("issue_bound_ms")
+            fields[label + "_issue_bound_by"] = loop.get("issue_bound_by")
+        if not loops:
+            fields["sass"] = "no substep loop found"
+        log("sass", **fields)
+
+
+def gather_row(name, line, ms, queued_ms, plain_ms, bound, err):
     """A row-gather kernel's row of the result line.  Its bound is bytes:
     the indices and each distinct row (in whole 32-byte sectors) read once,
     the output written once; a gather does no arithmetic.  The plain
@@ -435,7 +442,7 @@ def gather_row(name, line, ms, plain_ms, bound, err):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound["total"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": plain_ms,
-            "bytes": bound["total"], "ops": 0}
+            "device_ms": queued_ms, "bytes": bound["total"], "ops": 0}
 
 
 def check_gather_kernels(device, n=2_000_000, timed=True):
@@ -450,6 +457,7 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
     import torch
     from opendrift_tpu_torch.ops import gather
     from opendrift_tpu_torch.tools import gather_ab
+    from opendrift_tpu_torch.tools.kernel_check import cuda_ms, device_ms
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     r = np.random.default_rng(0)
     small = max(n // 1000, 8)
@@ -502,7 +510,8 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
             if name == "gather_rows_smem" and not fits:
                 continue
             ms = cuda_ms(lambda: fn(packed, idx))
-            row = gather_row(name, line, ms, plain_ms, bound, 0.0)
+            queued_ms = device_ms(lambda: fn(packed, idx))
+            row = gather_row(name, line, ms, queued_ms, plain_ms, bound, 0.0)
             log("kernel_time", case=label, **row)
             if (name, label) in (("gather_rows_async", "default"),
                                  ("gather_rows_smem", "fits_smem")):
@@ -633,6 +642,13 @@ def main_path():
     n = 2_000_000
     kernels = (mixing.visser_mixing, mixing.visser_mixing_profile)
     launches = {}
+    # one untimed interval first: the first run() of a process loads each
+    # of PyTorch's CUDA kernels at its first use, and the timed run below
+    # should not carry that
+    o, secs = run_main_path(n, intervals=1, model="windspeed_Large1994")
+    cold = n * 10 / (o.timers["main loop"]
+                     - o.timers.get("main loop:readers", 0.0))
+    del o
     # the windspeed kernel's path: 3 output intervals of K = 10 steps
     for k in kernels:
         k.launches = 0
@@ -649,7 +665,8 @@ def main_path():
              "main_loop_s": loop_s, "readers_s": readers_s,
              "particle_steps_per_s": n * steps / secs,
              "particle_steps_per_s_steps_only":
-                 n * steps / (loop_s - readers_s)}
+                 n * steps / (loop_s - readers_s),
+             "particle_steps_per_s_steps_only_cold": cold}
     log("main_path", model="windspeed_Large1994", ocean_tier=sampler,
         wind_tier=wind_tier, active_share=active,
         launches=launches["visser_mixing"],
@@ -988,6 +1005,7 @@ def count_row_gathers(o, steps=4):
 def time_get_profiles(o):
     """Milliseconds of one ``get_profiles`` call at the run's final
     positions (CUDA events)."""
+    from opendrift_tpu_torch.tools.kernel_check import cuda_ms
     dev_states = o.env.build_device_states()
     d = o.state.data
     zlevels = o._profile_zlevels()
@@ -1353,6 +1371,9 @@ def main():
 
     rows = check_kernels("cuda")
     rows["visser_mixing_oil"] = check_oil_kernel("cuda")
+    check_ragged_sizes("cuda")
+    quotient_sweep()
+    sass_phase(rows)
     rows.update(check_gather_kernels("cuda"))
     launches, stats = main_path()
     launches["visser_mixing_oil"], oil_stats = oil_path()
@@ -1383,7 +1404,8 @@ def main():
     oil_card_against_cpu()
     sampler_card_against_cpu()
 
-    kernels = [{k: v for k, v in row.items() if k not in ("bytes", "ops")}
+    kernels = [{k: v for k, v in row.items()
+                if k not in ("bytes", "ops")}
                for row in rows.values()]
     print(json.dumps({"kernels": kernels}))
     print(power)

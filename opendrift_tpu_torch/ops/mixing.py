@@ -23,11 +23,29 @@ the current stream; a CPU tensor takes the plain version beside it
 no fallback: a kernel that fails to build or launch raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
+What bounds them on an H100: the windspeed and oil kernels are bound by the
+rate at which an SM issues instructions (128 thread-instructions a clock;
+no multiply-add is contracted, see ``NVCC_FLAGS``), not by their bytes; the
+profile kernel by its bytes.  So the windspeed and oil kernels are written
+to issue few instructions a substep while giving the plain versions' bits:
+Large1994's three divisions by the mixed-layer depth go through one
+reciprocal an element and a fused correction that lands on the correctly
+rounded quotient (only for depths in :data:`RECIPROCAL_MLD_RANGE`, decided
+once an element inside the kernel; any other depth is divided), and the
+oil kernel's two possible rise velocities are computed before the loop.
+The plain versions do none of this:
+they stay the JAX loops and are what the kernels are held to, equal by
+value on the card (``chip_smoke.py``; ``tools/sass.py`` counts a substep's
+instructions).  That the quotient has the division's bits is not taken from
+a sample: :func:`reciprocal_quotient_sweep` compares the two on the card for
+every float32 depth of the range and every numerator of the walk.
+
 The library is compiled with ``nvcc`` on first use into
 ``opendrift_tpu_torch/_build/`` (git-ignored) and loaded with ctypes.
 """
 
 import ctypes
+import struct
 import threading
 
 import torch
@@ -40,6 +58,11 @@ WINDSPEED_MODELS = ("windspeed_Sundby1983", "windspeed_Large1994",
 _MODEL_CODE = {m: i for i, m in enumerate(WINDSPEED_MODELS)}
 
 _M32 = 0xFFFFFFFF
+# The mixed-layer depths (m) for which the kernels take Large1994's
+# sigma = depth / mld through the reciprocal of mld (kReciprocalMin and
+# kReciprocalMax of csrc/visser_mixing.cu); any other depth, and NaN, is
+# divided.  The plain versions below always divide.
+RECIPROCAL_MLD_RANGE = (2.0 ** -20, 2.0 ** 20)
 # -fmad=false: no contracted multiply-adds, so a kernel rounds like its
 # plain version
 NVCC_FLAGS = [*ARCH_FLAGS, "-fmad=false", *SHARED_FLAGS]
@@ -77,6 +100,8 @@ def load_library():
             lib.visser_mixing_oil_launch.argtypes = [
                 *([p] * 13), u, i, f, i, f, i, i, i, p, p, p]
             lib.visser_mixing_oil_launch.restype = i
+            lib.reciprocal_quotient_sweep_launch.argtypes = [u, u, p, p]
+            lib.reciprocal_quotient_sweep_launch.restype = i
             _lib = lib
     return _lib
 
@@ -230,6 +255,47 @@ def visser_mixing(z, moving, w, wind, mld, zmin, seed, elem=None, *, ntimes,
 
 
 visser_mixing.launches = 0
+
+
+def reciprocal_quotient_sweep(mld_lo, mld_hi, device="cuda"):
+    """Hold the kernels' reciprocal quotient against the float32 division
+    on the card, bit for bit, for EVERY float32 mixed-layer depth in
+    [``mld_lo``, ``mld_hi``] (positive, normal) and every numerator the
+    walk can divide by it: the integer levels 0 to floor(mld + 1) + 2, and
+    mld, the clipped level mld + 1 and its two neighbours as the kernel
+    rounds them.  Runs the device function the windspeed and oil kernels
+    call, compiled with their flags; one launch a binade.
+
+    Returns (quotients compared, quotients that differ, the first differing
+    (mld, numerator) or None).  There is no version of it for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the quotient sweep runs the kernels' device "
+                         f"function and needs a CUDA device, not {dev}")
+    lo = torch.tensor(float(mld_lo), dtype=torch.float32)
+    hi = torch.tensor(float(mld_hi), dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    if not (tiny <= float(lo) <= float(hi) < float("inf")):
+        raise ValueError(f"not a range of positive normal float32: "
+                         f"[{mld_lo}, {mld_hi}]")
+    lo_bits = int(lo.view(torch.int32))
+    hi_bits = int(hi.view(torch.int32))
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    first = lo_bits
+    while first <= hi_bits:
+        last = min(first | 0x7FFFFF, hi_bits)       # to the binade's end
+        rc = lib.reciprocal_quotient_sweep_launch(first, last,
+                                                  counts.data_ptr(), stream)
+        check_launch(rc, "reciprocal_quotient_sweep")
+        first = last + 1
+    compared, differing, packed = (int(v) for v in counts.cpu())
+    where = None
+    if differing:
+        numerator, mld = struct.unpack("<ff", struct.pack("<Q", packed))
+        where = (mld, numerator)
+    return compared, differing, where
 
 
 # ------------------------------------------------------ profile models ----

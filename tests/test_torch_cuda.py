@@ -205,6 +205,50 @@ def test_kernels_bit_equal_to_plain_on_the_card(at_surface):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 257, 100_001])
+def test_mixing_kernels_equal_plain_on_edge_cases_on_the_card(n):
+    """The shared check inputs: NaN seafloors, mixed layers thinner than 1 m
+    and outside the reciprocal's range (0, subnormal, huge, inf, NaN),
+    frozen elements, entrainment probabilities of 0 and 1; equal by value,
+    NaN where the plain version is NaN."""
+    _card()
+    from opendrift_tpu_torch.tools import kernel_check as ladder
+    t, seed, h = ladder.kernel_inputs(n, "cuda")
+    to, oil_seed = ladder.oil_kernel_inputs(n, "cuda")
+    for model in MODELS:
+        assert ladder.same(_windspeed(t, seed, model, False),
+                           _windspeed(t, seed, model, False, True))
+        for keep_diam in (False, True):
+            got = _oil(to, oil_seed, model, False, keep_diam)
+            want = _oil(to, oil_seed, model, False, keep_diam, True)
+            assert ladder.same(got[0], want[0])
+            assert ladder.same(got[1], want[1])
+    assert ladder.same(_profile(t, seed, h, False),
+                       _profile(t, seed, h, False, True))
+
+
+@pytest.mark.gpu
+def test_reciprocal_quotient_is_the_division_for_every_depth_on_the_card():
+    """Exhaustive: every float32 mixed-layer depth of the range that takes
+    the reciprocal against every numerator the walk can divide by it
+    (some 1e13 quotients, seconds on an H100), bit for bit against ``/``."""
+    _card()
+    lo, hi = mixing.RECIPROCAL_MLD_RANGE
+    compared, differing, where = mixing.reciprocal_quotient_sweep(lo, hi)
+    assert compared > 1e13 and differing == 0, (compared, differing, where)
+    # a thin mixed layer has few levels: 0 to 3, and four more numerators
+    assert mixing.reciprocal_quotient_sweep(0.25, 0.25) == (8, 0, None)
+
+
+def test_quotient_sweep_needs_a_card_and_a_normal_range():
+    with pytest.raises(ValueError, match="CUDA device"):
+        mixing.reciprocal_quotient_sweep(1.0, 2.0, device="cpu")
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="positive normal"):
+            mixing.reciprocal_quotient_sweep(0.0, 2.0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("keep_diam", [False, True])
 @pytest.mark.parametrize("at_surface", [False, True])
 def test_oil_kernel_equals_plain_on_the_card(at_surface, keep_diam):

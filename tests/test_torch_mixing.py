@@ -214,3 +214,193 @@ def test_physics_parameterisations_match_jax(name, keys):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-9)
+
+
+# ------------------------------------------- the kernels' reciprocal quotient
+
+def _rn32_sum(c, p):
+    """RN_float32(c + p) for a float32 array ``c`` and a float64 array ``p``
+    of exact values: the sum is taken in float64 with its rounding error
+    (TwoSum), and where the float64 sum sits exactly half-way between two
+    float32 the error decides the side, so nothing is rounded twice."""
+    f32 = np.float32
+    c = c.astype(np.float64)
+    s = c + p
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)
+    out = s.astype(f32)
+    o64 = out.astype(np.float64)
+    lo = np.nextafter(out, f32(-np.inf))
+    hi = np.nextafter(out, f32(np.inf))
+    tie_lo = (s - lo.astype(np.float64) == o64 - s) & (s != o64)
+    tie_hi = (hi.astype(np.float64) - s == s - o64) & (s != o64)
+    out = np.where(tie_lo & (err < 0), lo, out)
+    return np.where(tie_hi & (err > 0), hi, out)
+
+
+def _fma32(a, b, c):
+    """One float32 fused multiply-add, a * b + c with a single rounding: the
+    product of two float32 is exact in float64."""
+    return _rn32_sum(c, a.astype(np.float64) * b.astype(np.float64))
+
+
+def _reciprocal_quotient(a, mld):
+    """csrc/visser_mixing.cu's quotient: r = 1 / mld once (correctly
+    rounded), then q = a * r; q = fma(fma(-mld, q, a), r, q)."""
+    r = (np.float32(1.0) / mld).astype(np.float32)
+    q = (a * r).astype(np.float32)
+    return _fma32(_fma32(-mld, q, a), r, q)
+
+
+def _levels_of(mld):
+    """Every numerator the kernels divide by ``mld``: the integer levels 0
+    to mld + 2 and the clipped level mld + 1 with its neighbours."""
+    top = int(min(np.floor(float(mld)) + 3, 5000))
+    return np.concatenate([
+        np.arange(0, top + 1, dtype=np.float32),
+        np.array([mld, mld + np.float32(1), mld + np.float32(2)],
+                 dtype=np.float32)])
+
+
+def test_fma_emulation_matches_exact_rationals():
+    from fractions import Fraction
+    f32 = np.float32
+
+    def rn32(x):
+        c = f32(float(x))
+        near = (np.nextafter(c, f32(-np.inf)), c, np.nextafter(c, f32(np.inf)))
+        return min(near, key=lambda v: (abs(Fraction(float(v)) - x),
+                                        int(f32(v).view(np.uint32)) & 1))
+
+    r = np.random.default_rng(8)
+    b = np.exp(r.uniform(np.log(2.0 ** -20), np.log(2.0 ** 20), 600)
+               ).astype(f32)
+    a = (b * r.uniform(0.0, 1.2, 600)).astype(f32)
+    # products that land near half-way points, where a second rounding shows
+    c = (a * b).astype(f32)
+    c = np.where(np.arange(600) % 2 == 0, np.nextafter(c, f32(0)), -c)
+    got = _fma32(a, b, c)
+    for i in range(600):
+        want = rn32(Fraction(float(a[i])) * Fraction(float(b[i]))
+                    + Fraction(float(c[i])))
+        assert got[i] == want, (a[i], b[i], c[i])
+
+
+@pytest.mark.parametrize("lo,hi,count", [
+    (2.0 ** -20, 0.5, 6000), (0.5, 10.0, 6000), (10.0, 60.0, 12000),
+    (60.0, 400.0, 1500), (400.0, 2.0 ** 20, 150)])
+def test_reciprocal_quotient_equals_division(lo, hi, count):
+    """For a dense sample of mixed-layer depths inside the range that takes
+    the reciprocal, every level's quotient is the float32 division's."""
+    r = np.random.default_rng(9)
+    mlds = np.exp(r.uniform(np.log(lo), np.log(hi), count)).astype(np.float32)
+    # depths next to a power of two, where a reciprocal is least accurate
+    mlds[:64] = np.nextafter(np.float32(2.0) ** r.integers(
+        int(np.ceil(np.log2(lo))) + 1, int(np.floor(np.log2(hi))) + 1, 64
+    ).astype(np.float32), np.float32(0))
+    lo32, hi32 = (np.float32(v) for v in mixing.RECIPROCAL_MLD_RANGE)
+    assert ((mlds >= lo32) & (mlds <= hi32)).all()
+    a = np.concatenate([_levels_of(m) for m in mlds])
+    m = np.concatenate([np.full(_levels_of(m).shape, m) for m in mlds])
+    np.testing.assert_array_equal(_reciprocal_quotient(a, m),
+                                  (a / m).astype(np.float32))
+
+
+def test_reciprocal_quotient_on_the_hardest_depths():
+    """The quotients nearest a rounding boundary: for a level a = a' 2^j
+    (a' odd, below 64) the mixed-layer depths B 2^k with |a' 2^s - K B| <= 3
+    for an odd 25-bit K put a / mld within 2^-23 ulp of the half-way point
+    K; the all-ones depths 2^k (1 - 2^-24) are among them."""
+    f32 = np.float32
+    K = np.arange(2 ** 24 + 1, 2 ** 25, 2, dtype=np.int64)
+    hard = []
+    for odd in range(1, 64, 2):
+        A = odd << (23 - (odd.bit_length() - 1))
+        for shift in (24, 25):                 # a / mld in [1, 2) or [.5, 1)
+            T = A << shift
+            B = (T + K // 2) // K
+            d = T - K * B
+            ok = (np.abs(d) <= 3) & (d != 0) & (B >= 2 ** 23) & (B < 2 ** 24)
+            hard += [(odd, int(b)) for b in B[ok]]
+    assert (1, 2 ** 24 - 1) in hard and len(hard) > 50
+    a, m = [], []
+    for odd, B in hard:
+        for k in range(-30, -12):              # mld from 2^-7 to 2^11
+            mld = f32(B * 2.0 ** k)
+            for j in range(12):
+                if odd * 2 ** j <= float(mld) + 2:
+                    a.append(odd * 2 ** j)
+                    m.append(mld)
+    a, m = np.array(a, f32), np.array(m, f32)
+    assert a.size > 3000
+    np.testing.assert_array_equal(_reciprocal_quotient(a, m),
+                                  (a / m).astype(np.float32))
+
+
+def test_reciprocal_guard_sends_odd_depths_to_the_division():
+    """Zero, subnormal, tiny, huge, infinite, NaN and negative mixed-layer
+    depths fail the guard (both comparisons are false for NaN), and the
+    kernels' source states the same range."""
+    import os
+    lo, hi = (np.float32(v) for v in mixing.RECIPROCAL_MLD_RANGE)
+    with np.errstate(over="ignore", under="ignore"):
+        odd = np.array([0.0, -0.0, 1e-45, 1e-40, 1e-7, 2.0 ** -21, 2.0 ** 21,
+                        1e7, 3e38, np.inf, -np.inf, np.nan, -5.0],
+                       dtype=np.float32)
+    assert not ((odd >= lo) & (odd <= hi)).any()
+    inside = np.array([2.0 ** -20, 0.05, 1.0, 50.0, 2.0 ** 20], np.float32)
+    assert ((inside >= lo) & (inside <= hi)).all()
+    assert float(lo) == 2.0 ** -20 and float(hi) == 2.0 ** 20
+    src = os.path.join(os.path.dirname(mixing.__file__), "..", "csrc",
+                       "visser_mixing.cu")
+    with open(src) as f:
+        text = f.read()
+    assert "kReciprocalMin = 0x1p-20f" in text
+    assert "kReciprocalMax = 0x1p+20f" in text
+    # nothing on the reciprocal's way leaves the normal range at the ends
+    for mld in (lo, hi):
+        a = _levels_of(mld)
+        q = _reciprocal_quotient(a, np.full(a.shape, mld))
+        np.testing.assert_array_equal(q, (a / mld).astype(np.float32))
+        assert np.isfinite(q).all()
+
+
+# ------------------------------------------------------------- edge cases --
+
+def _edge_inputs(n, seed=11):
+    """``_inputs`` with, in turns over the elements: a NaN seafloor, a mixed
+    layer thinner than 1 m (one starting at the surface), a frozen element
+    and an untouched one."""
+    d = _inputs(seed=seed, n=n)
+    i = np.arange(n)
+    d["zmin"][i % 5 == 1] = np.nan
+    thin = i % 5 == 2
+    d["mld"][thin] = np.random.default_rng(seed).uniform(
+        0.05, 1.0, int(thin.sum())).astype(np.float32)
+    d["z"][i % 10 == 2] = 0.0
+    d["moving"][i % 5 == 3] = 0.0
+    return d
+
+
+@pytest.mark.parametrize("n", [1, 7, 1001])
+@pytest.mark.parametrize("model", list(mixing.WINDSPEED_MODELS))
+def test_windspeed_plain_matches_pallas_emulation_on_edge_cases(model, n):
+    """NaN seafloors, mixed layers thinner than 1 m, frozen elements, one
+    element and odd sizes, at the tolerance of the test above."""
+    d = _edge_inputs(n)
+    kw = dict(ntimes=15, dt_mix=60.0, model=model, bg=1.2e-5,
+              mixing_at_surface=False)
+    want = np.asarray(pallas_mixing.visser_mixing(
+        d["z"], d["moving"], d["w"], d["wind"], d["mld"], d["zmin"],
+        jnp.uint32(d["seed"]), elem=jnp.asarray(d["elem"]), interpret=True,
+        **kw))
+    got = mixing.visser_mixing(
+        _t(d["z"]), _t(d["moving"]), _t(d["w"]), _t(d["wind"]), _t(d["mld"]),
+        _t(d["zmin"]), d["seed"], elem=_t(d["elem"], torch.int32), **kw)
+    assert got.shape == (n,)
+    _close(got, want)
+    got = got.numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(d["zmin"]))
+    frozen = (d["moving"] == 0) & ~np.isnan(d["zmin"])
+    # a frozen element keeps its depth (the surface stick aside)
+    np.testing.assert_array_equal(got[frozen], d["z"][frozen])

@@ -154,6 +154,124 @@ def test_oil_kernel_zero_diameter_has_no_nan():
     assert torch.equal(out_z, z) and torch.equal(out_d, torch.zeros(n))
 
 
+def _edge_kernel_inputs(n, seed=5):
+    """``_kernel_inputs`` with, in turns over the elements: a NaN seafloor,
+    a mixed layer thinner than 1 m, a frozen element, an entrainment
+    probability of 1 with a start at the surface (entrains at every visit
+    of the surface) and one of 0 (never)."""
+    d, elem, s = _kernel_inputs(n=n, seed=seed)
+    i = np.arange(n)
+    d["zmin"][i % 7 == 1] = np.nan
+    thin = i % 7 == 2
+    d["mld"][thin] = np.random.default_rng(seed).uniform(
+        0.05, 1.0, int(thin.sum())).astype(np.float32)
+    d["moving"][i % 7 == 3] = 0
+    often = i % 7 == 4
+    d["p_ent"][often] = 1
+    d["z"][often] = 0
+    d["zb"][often] = np.maximum(d["zb"][often], 0.5)
+    d["p_ent"][i % 7 == 5] = 0
+    return d, elem, s
+
+
+def _two_velocity_loop(z, diam, moving, wind, mld, zmin, p_ent, d_cand, zb,
+                       kw, kw2, nu_w, elem, seed, *, ntimes, dt_mix, model,
+                       bg, mixing_at_surface, keep_diam):
+    """The oil kernel's loop as csrc/visser_mixing.cu runs it, from the
+    module's helpers: the rise velocities of the input diameter and of the
+    candidate are computed before the loop and travel with the diameter.
+    Returns (z, diameter, entrainments of each element)."""
+    def rise(d):
+        r2 = d * 0.5
+        W = kw * r2 * r2
+        Re = d * torch.abs(W) / nu_w
+        return torch.where(Re > 50.0, kw2 * torch.sqrt(r2), W)
+    w = rise(diam)
+    w_cand = w if keep_diam else rise(d_cand)
+    adt = abs(dt_mix)
+    counter = mixing._element_base(elem, seed)
+    upper = mld + 1.0
+    count = torch.zeros_like(elem)
+    for _ in range(int(ntimes)):
+        surface = z == 0.0
+        bits = mixing.splitmix32(counter)
+        counter = (counter + 0x85ebca6b) & 0xFFFFFFFF
+        bits1 = mixing.splitmix32((bits + 0xc2b2ae35) & 0xFFFFFFFF)
+        bits2 = mixing.splitmix32((bits1 + 0x27d4eb2f) & 0xFFFFFFFF)
+        R = mixing._unit(bits) * 2.0 - 1.0
+        z = mixing._visser_step(z, moving, wind, mld, upper, bg, model, R,
+                                dt_mix, adt)
+        z = torch.where(z >= 0.0, -z, z)
+        z = torch.where((z < zmin) & (moving == 1.0), 2.0 * zmin - z, z)
+        z = z + w * dt_mix * moving
+        if not mixing_at_surface:
+            z = torch.where(surface, 0.0, z)
+        z = torch.clamp_max(z, 0.0)
+        entrained = (z >= 0.0) & (mixing._unit(bits1) < p_ent)
+        z = torch.where(entrained, -mixing._unit(bits2) * zb, z)
+        if not keep_diam:
+            diam = torch.where(entrained, d_cand, diam)
+            w = torch.where(entrained, w_cand, w)
+        count = count + entrained.to(count.dtype)
+        z = torch.maximum(z, zmin)
+    return z, diam, count
+
+
+@pytest.mark.parametrize("keep_diam", [False, True])
+@pytest.mark.parametrize("model", list(mixing.WINDSPEED_MODELS))
+def test_two_velocity_loop_equals_plain_version(model, keep_diam):
+    """What the kernel's redesign rests on: two rise velocities computed
+    before the loop and a running hash counter give the plain version's
+    bits, with diameters of 0, entrainment probabilities of 0 and 1 and
+    elements that entrain more than once."""
+    d, elem, seed = _edge_kernel_inputs(1003)
+    kw = dict(ntimes=15, dt_mix=60.0, model=model, bg=1.2e-5,
+              mixing_at_surface=False, keep_diam=keep_diam)
+    args = [_t(d[k]) for k in OIL_ARGS]
+    want_z, want_d = mixing.visser_mixing_oil_plain(
+        *args, _t(elem, torch.int32), seed, **kw)
+    got_z, got_d, count = _two_velocity_loop(
+        *args, _t(elem, torch.int32), seed, **kw)
+    nan = torch.isnan(want_z)
+    assert torch.equal(nan, torch.isnan(_t(d["zmin"])))
+    assert torch.equal(got_z[~nan], want_z[~nan])
+    assert torch.equal(torch.isnan(got_z), nan)
+    assert torch.equal(got_d, want_d)
+    assert (d["diam"] == 0).any() and (count > 1).any()
+    assert (count[_t(d["p_ent"]) == 0] == 0).all()
+    assert (count[_t(d["p_ent"]) == 1] >= 1).all()
+    if not keep_diam:
+        # an entrained element carries the candidate's diameter from then on
+        assert torch.equal(got_d[count > 0], _t(d["d_cand"])[count > 0])
+
+
+@pytest.mark.parametrize("n", [1, 7, 1003])
+@pytest.mark.parametrize("model", list(mixing.WINDSPEED_MODELS))
+def test_oil_kernel_plain_matches_pallas_emulation_on_edge_cases(model, n):
+    """NaN seafloors, mixed layers thinner than 1 m, frozen elements,
+    entrainment probabilities of 0 and 1, one element and odd sizes: the
+    decisions (so the diameters) exactly, z at the tolerance above."""
+    d, elem, seed = _edge_kernel_inputs(n)
+    kw = dict(ntimes=15, dt_mix=60.0, model=model, bg=1.2e-5,
+              mixing_at_surface=False, keep_diam=False)
+    want_z, want_d = pallas_mixing.visser_mixing_oil(
+        *(jnp.asarray(d[k]) for k in OIL_ARGS), jnp.uint32(seed),
+        elem=jnp.asarray(elem), interpret=True, **kw)
+    got_z, got_d = mixing.visser_mixing_oil(
+        *(_t(d[k]) for k in OIL_ARGS), seed, elem=_t(elem, torch.int32), **kw)
+    assert got_z.shape == got_d.shape == (n,)
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    got_z, want_z = got_z.numpy(), np.asarray(want_z)
+    np.testing.assert_array_equal(np.isnan(got_z), np.isnan(d["zmin"]))
+    np.testing.assert_array_equal(np.isnan(want_z), np.isnan(d["zmin"]))
+    dz = np.abs(got_z - want_z)[~np.isnan(got_z)]
+    assert dz.size == 0 or (dz > Z_ATOL).mean() <= FLIP_SHARE, dz.max()
+    frozen = (d["moving"] == 0) & ~np.isnan(d["zmin"])
+    # a frozen element moves only by an entrainment from the surface
+    still = frozen & (got_d.numpy() == d["diam"]) & (d["z"] < 0)
+    np.testing.assert_array_equal(got_z[still], d["z"][still])
+
+
 # --------------------------------------------------------------- OilType --
 
 @pytest.mark.parametrize("name", ["GENERIC MEDIUM CRUDE", "STATFJORD",
