@@ -20,13 +20,17 @@ printing its own line:
    (``index_select``, which is also their plain version).
    The mixing kernels must equal their plain versions by value, edge cases
    included (a NaN seafloor, mixed layers thinner than 1 m and outside the
-   reciprocal's range, frozen elements), also at ragged sizes (N = 1, 2,
-   255, 257, 2,000,001); the reciprocal quotient of the windspeed and oil
+   reciprocal's range, frozen elements; for the profile kernel every block
+   at the first and last level, 1 m2/s diffusivities, 2 and 201 levels,
+   NaN depths), also at ragged sizes (N = 1, 2, 255, 257, 2,000,001); the
+   profile kernel's bound also in whole 32-byte sectors
+   (``bound_sector_ms``); the reciprocal quotient of the windspeed and oil
    kernels against the division for every mixed-layer depth of its range;
-   for the windspeed and oil kernels the substep
-   loop's SASS instructions by pipe and the issue bound they set
-   (``opendrift_tpu_torch/tools/sass.py``; "not available" without a
-   ``cuobjdump``);
+   for the three mixing kernels the substep loop's SASS instructions by
+   pipe and the issue bound they set (``opendrift_tpu_torch/tools/sass.py``;
+   "not available" without a ``cuobjdump``); the row gathers bit for bit
+   on rows of 10 to 4096 bytes, each case naming the route it took (bulk
+   copies or the ``cp.async`` ring);
 3. main path: ``OceanDrift(device="cuda")`` on a synthetic 3D z-level
    ``ArrayReader``, 2M elements, RK4 + Visser mixing (windspeed_Large1994,
    through the windspeed kernel) after one untimed interval that takes the
@@ -288,8 +292,8 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True, report=log):
             return fn(*args, t["elem"], seed, **kw)
         return fn(*args, seed, elem=t["elem"], **kw)
 
-    def profile(at_surface, plain, substeps=ntimes):
-        kw = dict(ntimes=substeps, dt_mix=60.0, h=h,
+    def profile(at_surface, plain):
+        kw = dict(ntimes=ntimes, dt_mix=60.0, h=h,
                   mixing_at_surface=at_surface)
         args = (t["z"], t["moving"], t["w"], t["Kprof"], t["gradK"],
                 t["zmin"])
@@ -297,21 +301,6 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True, report=log):
             return mixing.visser_mixing_profile_plain(
                 *args, t["elem"], seed, **kw)
         return mixing.visser_mixing_profile(*args, seed, elem=t["elem"], **kw)
-
-    def profile_levels_visited():
-        """How many (level, element) pairs of Kprof/gradK the profile
-        kernel reads on this data: substep i reads the level nearest the
-        depth after i substeps, the plain version's output at ntimes=i (a
-        NaN depth reads level 0)."""
-        L = t["Kprof"].shape[0]
-        visited = torch.zeros(t["Kprof"].shape, dtype=torch.bool,
-                              device=device)
-        for i in range(ntimes):
-            z = t["z"] if i == 0 else profile(False, True, substeps=i)
-            zi = torch.clip(torch.round(-z / h).nan_to_num(0.0).to(
-                torch.int64), 0, L - 1)
-            visited.scatter_(0, zi[None], True)
-        return int(visited.sum())
 
     for at_surface in (False, True):
         for model in mixing.WINDSPEED_MODELS:
@@ -337,9 +326,23 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True, report=log):
     o1 = n * ntimes * OPS_PER_SUBSTEP[model]
     # the profile kernel reads 5 arrays of 4 B (z, moving, w, zmin, elem)
     # and writes z, plus K and gradK at each (level, element) this run's
-    # data visits
-    b2 = n * 6 * 4 + profile_levels_visited() * 2 * 4
+    # data visits (bound_ms, 4 B a pair), or in whole 32-byte
+    # sectors (bound_sector_ms)
+    L = t["Kprof"].shape[0]
+    visited = torch.zeros(t["Kprof"].shape, dtype=torch.bool, device=device)
+    for i in range(ntimes):
+        # substep i reads the level nearest the plain version's depth after
+        # i substeps (a NaN depth reads level 0, as the card converts it)
+        z = t["z"] if i == 0 else mixing.visser_mixing_profile_plain(
+            t["z"], t["moving"], t["w"], t["Kprof"], t["gradK"], t["zmin"],
+            t["elem"], seed, ntimes=i, dt_mix=60.0, h=h,
+            mixing_at_surface=False)
+        zi = torch.round(-z / h).nan_to_num(0.0).clamp(0, L - 1)
+        visited.scatter_(0, zi.to(torch.int64)[None], True)
+    pb = mixing.profile_bound_bytes(visited)
+    b2 = pb["total"]
     o2 = n * ntimes * OPS_PER_SUBSTEP["profile"]
+    report("profile_bound", levels=L, h=h, **pb)
     for name, run, nbytes, nops, line in (
             ("visser_mixing", lambda p: windspeed(model, False, p), b1, o1,
              313),
@@ -359,8 +362,46 @@ def check_kernels(device, n=N_KERNEL, ntimes=NTIMES, timed=True, report=log):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "device_ms": queued_ms, "bytes": nbytes,
             "ops": nops}
+        if name == "visser_mixing_profile":
+            t_sectors = pb["sector_total"] / HBM_BYTES_PER_S * 1e3
+            rows[name].update(bound_sector_ms=max(t_sectors, t_ops),
+                              sector_bytes=pb["sector_total"])
         log("kernel_time", **rows[name])
     return rows
+
+
+def check_profile_edges(device, n=200_003, ntimes=NTIMES, report=log):
+    """The profile kernel against its plain version on its edge cases
+    (``kernel_check.PROFILE_EDGE_CASES``: every block of the kernel at the
+    first and the last level, diffusivities that move elements 10 levels a
+    substep, 2 and 201 levels, NaN depths and seafloors), with and without
+    mixing at the surface, equal by value.  Returns the largest error
+    (0.0)."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.tools.kernel_check import (
+        PROFILE_EDGE_CASES, profile_edge_inputs)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    worst = 0.0
+    for case in PROFILE_EDGE_CASES:
+        t, seed, h = profile_edge_inputs(case, n, device)
+        stats = {"levels": int(t["Kprof"].shape[0]), "h": h}
+        for at_surface in (False, True):
+            kw = dict(ntimes=ntimes, dt_mix=60.0, h=h,
+                      mixing_at_surface=at_surface)
+            args = (t["z"], t["moving"], t["w"], t["Kprof"], t["gradK"],
+                    t["zmin"])
+            got = mixing.visser_mixing_profile(*args, seed, elem=t["elem"],
+                                               **kw)
+            want = mixing.visser_mixing_profile_plain(*args, t["elem"], seed,
+                                                      **kw)
+            sync()
+            worst = max(worst, must_equal(
+                report, "visser_mixing_profile",
+                dict(case=case, mixing_at_surface=at_surface), (got,),
+                (want,), nan_share=float(torch.isnan(want).float().mean()),
+                **stats))
+    return worst
 
 
 def check_ragged_sizes(device, sizes=RAGGED_SIZES):
@@ -399,7 +440,7 @@ def quotient_sweep():
 
 
 def sass_phase(rows, n=N_KERNEL, ntimes=NTIMES):
-    """The compiled substep loops of the windspeed and oil kernels
+    """The compiled substep loops of the windspeed, oil and profile kernels
     (Large1994, the main path's options): SASS instructions a substep by
     pipe, and the issue bound they set at the SM clock read under load,
     beside the rows' ``bound_ms`` (bytes and operations at the data sheet's
@@ -422,7 +463,10 @@ def sass_phase(rows, n=N_KERNEL, ntimes=NTIMES):
                   "ms": rows[name]["ms"],
                   "device_ms": rows[name]["device_ms"],
                   "bound_ms": rows[name]["bound_ms"]}
-        for label, loop in zip(("substep", "substep_dividing"), loops):
+        # the profile kernel has no dividing path
+        labels = ("substep", "substep_dividing") \
+            if name != "visser_mixing_profile" else ("substep", "substep_2")
+        for label, loop in zip(labels, loops):
             fields[label] = loop["per_substep"]
             fields[label + "_issue_bound_ms"] = loop.get("issue_bound_ms")
             fields[label + "_issue_bound_by"] = loop.get("issue_bound_by")
@@ -451,9 +495,13 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
     kernel must refuse it), (b) a table that fits shared memory, (c) a
     float16 table, 10-byte rows and row widths that are no multiple of 16
     bytes (88: 8-byte copies, 92: 4-byte copies), (d) the ragged tail and
-    out-of-range indices.  Returns the two
-    rows of the result line: the cp.async kernel at (a), the shared-memory
-    kernel at (b)."""
+    out-of-range indices, int64 and int32, (e) rows of 16 and 4096 bytes
+    and a table that starts 8 bytes into its allocation.  Each line names
+    the route ``gather_rows_async`` took (bulk for whole 16-byte units of
+    48 bytes or more at 16-byte aligned addresses, ring otherwise).
+    Returns the two rows of
+    the result line: the asynchronous-copy kernel at (a), the
+    shared-memory kernel at (b)."""
     import torch
     from opendrift_tpu_torch.ops import gather
     from opendrift_tpu_torch.tools import gather_ab
@@ -467,19 +515,31 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
              ("rows_10B", small, 5, n // 4, np.float16, np.int32),
              ("rows_88B", 125 * small, 22, n // 4, np.float32, np.int64),
              ("rows_92B", 125 * small, 23, n // 4, np.float32, np.int32),
-             ("ragged", 40 * small, 88, n + 3, np.float32, np.int64)]
+             ("ragged", 40 * small, 88, n + 3, np.float32, np.int64),
+             ("ragged_int32", 125 * small, 24, n + 5, np.float32, np.int32),
+             ("rows_16B", 125 * small, 4, n + 1, np.float32, np.int64),
+             ("rows_4096B", small, 1024, n // 64 + 7, np.float32, np.int32),
+             ("offset_8B", 125 * small, 24, n // 4, np.float32, np.int64)]
     rows = {}
     for label, R, C, N, dtype, itype in cases:
         table = r.normal(size=(R, C)).astype(dtype)
         table[0, 0] = np.nan
         table[1, 0] = -0.0
-        lo, hi = (-3, R + 3) if label == "ragged" else (0, R - 1)
-        packed = torch.as_tensor(table, device=device)
+        lo, hi = (-3, R + 3) if label.startswith("ragged") else (0, R - 1)
+        if label == "offset_8B":
+            # the same rows in a view that starts 8 bytes into its storage
+            base = torch.empty(R * C + 2, dtype=torch.float32, device=device)
+            base[2:] = torch.as_tensor(table.reshape(-1), device=device)
+            packed = base[2:].view(R, C)
+        else:
+            packed = torch.as_tensor(table, device=device)
         idx = torch.as_tensor(r.integers(lo, hi, N).astype(itype),
                               device=device)
         want = gather.gather_rows_plain(packed, idx)
         got = gather.gather_rows_async(packed, idx)
         sync()
+        route = gather.gather_route(C * table.itemsize, packed.data_ptr(),
+                                    got.data_ptr())
         equal = {"gather_rows_async": gather_ab.bit_equal(got, want)}
         fits = R * C * table.itemsize <= gather.SMEM_TABLE_MAX_BYTES
         if fits:
@@ -496,7 +556,8 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
                                      "shared memory")
         log("kernel_check", kernel="row_gather", case=label, table=[R, C],
             dtype=np.dtype(dtype).name, indices=N,
-            index_dtype=np.dtype(itype).name, bit_equal=equal,
+            index_dtype=np.dtype(itype).name, copy_route=route,
+            table_offset=packed.data_ptr() % 16, bit_equal=equal,
             smem=("launched" if fits else f"refused: {refused}"))
         if not all(equal.values()):
             raise AssertionError(f"row gather {label}: {equal}")
@@ -512,7 +573,8 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
             ms = cuda_ms(lambda: fn(packed, idx))
             queued_ms = device_ms(lambda: fn(packed, idx))
             row = gather_row(name, line, ms, queued_ms, plain_ms, bound, 0.0)
-            log("kernel_time", case=label, **row)
+            log("kernel_time", case=label, copy_route=route if name ==
+                "gather_rows_async" else None, **row)
             if (name, label) in (("gather_rows_async", "default"),
                                  ("gather_rows_smem", "fits_smem")):
                 rows[name] = row
@@ -1372,6 +1434,7 @@ def main():
     rows = check_kernels("cuda")
     rows["visser_mixing_oil"] = check_oil_kernel("cuda")
     check_ragged_sizes("cuda")
+    check_profile_edges("cuda")
     quotient_sweep()
     sass_phase(rows)
     rows.update(check_gather_kernels("cuda"))

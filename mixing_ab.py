@@ -15,20 +15,20 @@ first) is the package's own source.  Each variant is built with the
 package's flags, launched directly (no wrapper), held against the plain
 versions of ``ops/mixing.py`` on the check inputs of
 ``tools/kernel_check.py`` (the windspeed kernel for 3 models x
-``mixing_at_surface``, the oil kernel also x ``keep_diam``; equal by value,
-NaN where the other is NaN), then timed in turns there and back (v1, v2,
-..., v2, v1) at N elements and T substeps for every model, the oil kernel
-with and without ``keep_diam``: queued back to back (``device_ms``) and one
-launch at a time (``cuda_ms``).  With a ``cuobjdump`` the substep loop's
-SASS counts and issue bound of each variant follow (``tools/sass.py``).
-One JSON line a result.  The exit code is 1 if ``current`` differs from a
-plain version (what another variant does is in its line only), 0
-otherwise.
+``mixing_at_surface``, the oil kernel also x ``keep_diam``, the profile
+kernel x ``mixing_at_surface`` on those inputs and on its edge cases;
+equal by value, NaN where the other is NaN), then timed in turns there and
+back (v1, v2, ..., v2, v1) at N elements and T substeps for every model,
+the oil kernel with and without ``keep_diam``, and the profile kernel:
+queued back to back (``device_ms``) and one launch at a time
+(``cuda_ms``).  With a ``cuobjdump`` the substep loop's SASS counts and
+issue bound of each variant follow (``tools/sass.py``).  One JSON line a
+result.  The exit code is 1 if ``current`` differs from a plain version
+(what another variant does is in its line only), 0 otherwise.
 """
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -39,10 +39,12 @@ import torch
 from opendrift_tpu_torch.ops import cuda_build, mixing
 from opendrift_tpu_torch.tools import sass
 from opendrift_tpu_torch.tools.kernel_check import (
-    OIL_NAMES, cuda_ms, device_ms, kernel_inputs, oil_kernel_inputs, same,
-    sm_clock_mhz)
+    OIL_NAMES, PROFILE_EDGE_CASES, cuda_ms, device_ms, kernel_inputs,
+    oil_kernel_inputs, profile_edge_inputs, same, sm_clock_mhz)
 
-LAUNCHERS = ("visser_mixing_launch", "visser_mixing_oil_launch")
+LAUNCHERS = ("visser_mixing_launch", "visser_mixing_oil_launch",
+             "visser_mixing_profile_launch")
+PROFILE_NAMES = ("z", "moving", "w", "Kprof", "gradK", "zmin", "elem")
 
 
 class Variant:
@@ -54,7 +56,8 @@ class Variant:
             self.path = mixing.build_library()
             report = mixing.build_log
         else:
-            self.path, report = self.build(source, flags)
+            self.path, report = cuda_build.build(
+                source, [*mixing.NVCC_FLAGS, *flags])
         self.ptxas = [line.strip() for line in (report or "").splitlines()
                       if "registers" in line or "spill" in line]
         self.lib = ctypes.CDLL(self.path)
@@ -62,20 +65,6 @@ class Variant:
         for name in LAUNCHERS:
             getattr(self.lib, name).argtypes = getattr(own, name).argtypes
             getattr(self.lib, name).restype = ctypes.c_int
-
-    @staticmethod
-    def build(source, flags):
-        flags = [*mixing.NVCC_FLAGS, *flags]
-        with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-        os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-        so = os.path.join(cuda_build.BUILD_DIR,
-                          f"libmixing_ab_{digest.hexdigest()[:16]}.so")
-        out = subprocess.run([cuda_build.nvcc(), *flags, "-o", so, source],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{out.stderr}")
-        return so, out.stderr
 
     def windspeed(self, t, seed, model, at_surface, ntimes, dt_mix=60.0,
                   bg=1.2e-5):
@@ -102,10 +91,36 @@ class Variant:
         cuda_build.check_launch(rc, f"{self.label}: visser_mixing_oil")
         return z_out, diam_out
 
+    def profile(self, t, seed, h, at_surface, ntimes, dt_mix=60.0):
+        out = torch.empty_like(t["z"])
+        rc = self.lib.visser_mixing_profile_launch(
+            *(t[k].data_ptr() for k in PROFILE_NAMES), seed, ntimes, dt_mix,
+            h, t["Kprof"].shape[0], int(at_surface), t["z"].shape[0],
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        cuda_build.check_launch(rc, f"{self.label}: visser_mixing_profile")
+        return out
 
-def check_variant(v, t, seed, to, oil_seed, ntimes):
-    """{case: equal} of a variant against the plain versions."""
+
+def profile_cases(t, seed, h, n_edge):
+    """(case, inputs, seed, h) the profile kernel is checked on: the check
+    inputs and each edge case at ``n_edge`` elements."""
+    cases = [("check", t, seed, h)]
+    for case in PROFILE_EDGE_CASES:
+        cases.append((case, *profile_edge_inputs(case, n_edge, "cuda")))
+    return cases
+
+
+def check_variant(v, t, seed, to, oil_seed, ntimes, profiles):
+    """{case: equal} of a variant against the plain versions; ``profiles``
+    from :func:`profile_cases`."""
     equal = {}
+    for case, tp, sp, h in profiles:
+        for at_surface in (False, True):
+            want = mixing.visser_mixing_profile_plain(
+                *(tp[k] for k in PROFILE_NAMES), sp, ntimes=ntimes,
+                dt_mix=60.0, h=h, mixing_at_surface=at_surface)
+            got = v.profile(tp, sp, h, at_surface, ntimes)
+            equal[f"K2 {case} surface={at_surface}"] = same(got, want)
     kw = dict(ntimes=ntimes, dt_mix=60.0, bg=1.2e-5)
     for model in mixing.WINDSPEED_MODELS:
         for at_surface in (False, True):
@@ -128,14 +143,15 @@ def check_variant(v, t, seed, to, oil_seed, ntimes):
 
 
 def run(variants, n, ntimes, surface_share=0.3, out=print, timed=True,
-        listing_dir=None):
+        listing_dir=None, n_edge=200_003):
     """Check, time (unless not ``timed``) and count every variant; returns
     whether the first variant equals the plain versions."""
-    t, seed, _ = kernel_inputs(n, "cuda", profiles=False)
+    t, seed, h = kernel_inputs(n, "cuda")
     to, oil_seed = oil_kernel_inputs(n, "cuda", surface_share=surface_share)
+    profiles = profile_cases(t, seed, h, n_edge)
     ok = True
     for v in variants:
-        equal = check_variant(v, t, seed, to, oil_seed, ntimes)
+        equal = check_variant(v, t, seed, to, oil_seed, ntimes, profiles)
         bad = [k for k, e in equal.items() if not e]
         if v is variants[0]:
             ok = not bad
@@ -160,6 +176,17 @@ def run(variants, n, ntimes, surface_share=0.3, out=print, timed=True,
                     v.label, []).append(device_ms(lambda: fn(v)))
                 times.setdefault(name + "_ms", {}).setdefault(
                     v.label, []).append(cuda_ms(lambda: fn(v)))
+        out(json.dumps(times))
+    if timed:
+        times = {"kernel": "K2", "n": n, "ntimes": ntimes,
+                 "levels": t["Kprof"].shape[0]}
+        for v in there_and_back:
+            def run_k2():
+                return v.profile(t, seed, h, False, ntimes)
+            times.setdefault("K2_device_ms", {}).setdefault(
+                v.label, []).append(device_ms(run_k2))
+            times.setdefault("K2_ms", {}).setdefault(v.label, []).append(
+                cuda_ms(run_k2))
         out(json.dumps(times))
     for v in variants:
         listing = listing_dir and os.path.join(listing_dir,

@@ -25,13 +25,14 @@ def nvcc():
 
 
 def build(source, flags):
-    """Compile ``csrc/<source>`` with ``flags`` unless a library of the same
-    content and flags is there already.  Returns (path of the shared
-    library, the compiler's report of this build or None)."""
+    """Compile ``csrc/<source>`` (or ``source``, an absolute path: another
+    version of a source, for an A/B) with ``flags`` unless a library of
+    the same content and flags is there already.  Returns (path of the
+    shared library, the compiler's report of this build or None)."""
     src = os.path.join(CSRC_DIR, source)
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-    stem = os.path.splitext(source)[0]
+    stem = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so, None

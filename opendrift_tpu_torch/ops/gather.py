@@ -7,10 +7,14 @@ Hopper in ``csrc/row_gather.cu`` compute it (the source note there says
 what bounds them on an H100), the counterparts of the two Pallas kernels
 of the JAX package's A/B tool ``tools/gather_ab.py``:
 
-* :func:`gather_rows_async` — every warp keeps a ring of ``NBUF`` stages of
-  rows in flight from device memory into shared memory with ``cp.async``
-  and writes each landed stage out contiguously; replaces
-  ``_pallas_dma_gather`` (gather_ab.py:45, ``pallas_call`` at :94);
+* :func:`gather_rows_async` — every warp keeps a ring of stages of rows in
+  flight from device memory into shared memory and writes each landed
+  stage out contiguously; replaces ``_pallas_dma_gather`` (gather_ab.py:45,
+  ``pallas_call`` at :94).  Two routes, by :func:`gather_route`: rows of
+  whole 16-byte units, ``BULK_MIN_ROW_BYTES`` or wider, at 16-byte aligned
+  addresses take one bulk asynchronous copy a row in and one a stage out
+  (``cp.async.bulk`` with mbarriers), any other row the ``NBUF``-stage
+  ring of ``cp.async`` unit copies;
 * :func:`gather_rows_smem` — the whole table is copied into a persistent
   block's dynamic shared memory once and rows are read from there;
   replaces ``_pallas_vmem_gather`` (gather_ab.py:101, ``pallas_call`` at
@@ -38,6 +42,9 @@ import torch
 from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch
 
 NBUF = 8                            # stages of the async ring (csrc kNBuf)
+# narrower rows take the ring even where they could take the bulk copies,
+# whose fixed cost a copy outweighs their bytes (csrc kBulkMinRow)
+BULK_MIN_ROW_BYTES = 48
 SMEM_TABLE_MAX_BYTES = 232_448      # dynamic shared memory of one block
 SECTOR_BYTES = 32                   # device-memory access granularity
 NVCC_FLAGS = [*ARCH_FLAGS, *SHARED_FLAGS]
@@ -89,6 +96,16 @@ def unit_bytes(row_bytes, *addresses):
                      "copy width")
 
 
+def gather_route(row_bytes, *addresses):
+    """The route :func:`gather_rows_async` takes for rows of ``row_bytes``
+    at these base addresses (the table's and the output's): "bulk" where
+    the copy width is 16 bytes (the row's bytes and every address a
+    multiple of 16) and the row is at least ``BULK_MIN_ROW_BYTES`` wide,
+    "ring" otherwise."""
+    return "bulk" if row_bytes >= BULK_MIN_ROW_BYTES and unit_bytes(
+        row_bytes, *addresses) == 16 else "ring"
+
+
 def _checked(packed, idx, name):
     """Raise on what the kernels do not take; returns (rows, row bytes)."""
     if not (torch.is_tensor(packed) and torch.is_tensor(idx)):
@@ -115,13 +132,15 @@ def _checked(packed, idx, name):
     return rows, cols * packed.element_size()
 
 
-def _launch(entry, packed, idx, rows, row_bytes, name):
+def _launch(entry, packed, idx, rows, row_bytes, name, lib=None):
+    """Launch ``entry`` of ``lib`` (default: the package's library) into a
+    new output; returns (output, whether a kernel was launched)."""
     out = torch.empty((idx.shape[0], packed.shape[1]), dtype=packed.dtype,
                       device=packed.device)
     if idx.shape[0] == 0:
         return out, False
     width = unit_bytes(row_bytes, packed.data_ptr(), out.data_ptr())
-    rc = getattr(load_library(), entry)(
+    rc = getattr(lib or load_library(), entry)(
         packed.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
         idx.shape[0], row_bytes, width, idx.element_size(),
         torch.cuda.current_stream(packed.device).cuda_stream)
@@ -130,10 +149,14 @@ def _launch(entry, packed, idx, rows, row_bytes, name):
 
 
 def gather_rows_async(packed, idx):
-    """``packed[clamp(idx)]`` through the ``cp.async`` ring kernel.
+    """``packed[clamp(idx)]`` through the asynchronous-copy kernel (its
+    bulk or its ring route, :func:`gather_route`).
 
     packed: contiguous (R, C), 2- or 4-byte elements; idx: contiguous (N,)
-    int32 or int64 on the same device.  Returns (N, C) of packed's type."""
+    int32 or int64 on the same device.  Returns (N, C) of packed's type.
+    Rows wider than an eighth of a block's shared memory are refused: the
+    ring holds ``NBUF`` of them (the bulk route's ring, three stages of at
+    least a row a warp, takes them as well)."""
     rows, row_bytes = _checked(packed, idx, "gather_rows_async")
     if row_bytes * NBUF > SMEM_TABLE_MAX_BYTES:
         raise ValueError(

@@ -23,10 +23,11 @@ the current stream; a CPU tensor takes the plain version beside it
 no fallback: a kernel that fails to build or launch raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 
-What bounds them on an H100: the windspeed and oil kernels are bound by the
-rate at which an SM issues instructions (128 thread-instructions a clock;
-no multiply-add is contracted, see ``NVCC_FLAGS``), not by their bytes; the
-profile kernel by its bytes.  So the windspeed and oil kernels are written
+What bounds them on an H100: the rate at which an SM issues instructions
+(128 thread-instructions a clock; no multiply-add is contracted, see
+``NVCC_FLAGS``), not their bytes; the profile kernel's bytes, counted in
+whole sectors (:func:`profile_bound_bytes`), take about as long as its
+issue.  So the windspeed and oil kernels are written
 to issue few instructions a substep while giving the plain versions' bits:
 Large1994's three divisions by the mixed-layer depth go through one
 reciprocal an element and a fused correction that lands on the correctly
@@ -52,6 +53,7 @@ import torch
 
 from . import physics as ph
 from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch
+from .gather import SECTOR_BYTES
 
 WINDSPEED_MODELS = ("windspeed_Sundby1983", "windspeed_Large1994",
                     "stepfunction")
@@ -356,6 +358,32 @@ def visser_mixing_profile(z, moving, w, Kprof, gradK, zmin, seed, elem=None,
 
 
 visser_mixing_profile.launches = 0
+
+
+def profile_bound_bytes(visited):
+    """The bytes the profile kernel must move at least, from ``visited``
+    (L, N) bool: the (level, element) pairs of Kprof and gradK its walk
+    reads.  ``total`` counts 4 B of each array a visited pair and the 24 B
+    an element of the per-element arrays (z, moving, w, zmin and the ID
+    read, z written): 4 B a pair.  ``sector_total`` counts each
+    32-byte sector of the level-major arrays that holds a visited pair
+    once, in each of the two, which is what a load fetches: the pairs
+    (level, element // 8) where N is a multiple of 8, else the sectors of
+    the flat (L * N) array."""
+    L, n = visited.shape
+    flat = visited.reshape(-1)
+    per = SECTOR_BYTES // 4
+    pad = -flat.shape[0] % per
+    flat = torch.nn.functional.pad(flat, (0, pad))
+    sectors = int(flat.view(-1, per).any(1).sum())
+    pairs = int(visited.sum())
+    element_bytes = n * 6 * 4
+    return {"pairs": pairs, "sectors": sectors,
+            "element_bytes": element_bytes,
+            "pair_bytes": pairs * 2 * 4,
+            "sector_bytes": sectors * 2 * SECTOR_BYTES,
+            "total": element_bytes + pairs * 2 * 4,
+            "sector_total": element_bytes + sectors * 2 * SECTOR_BYTES}
 
 
 # --------------------------------------------------------------- oil ------

@@ -13,8 +13,20 @@ the two hand-written kernels of ``ops/gather.py`` on the attached device:
                          the table fits)
 
 Usage: python -m opendrift_tpu_torch.tools.gather_ab [R] [C] [N]
-           [--device cpu]
-The default device is ``cuda``.  B and C are each checked bit-equal to A
+           [--device cpu] [--tables FILE.pt]
+           [--variant LABEL=SOURCE.cu[:FLAG,FLAG...]] ...
+The default device is ``cuda``.  ``--tables`` adds the (label, table,
+indices) triples of a file written with ``torch.save`` (say the sampler
+path's real tables, ``chip_smoke.real_tables``) to the default inputs.
+``--variant`` compares versions of ``csrc/row_gather.cu`` instead (the
+parent commit's, unpacked with ``git archive``, or an edited copy, with
+further ``nvcc`` flags where given): each is built with the package's
+flags and its
+``gather_rows_async`` launched directly beside the package's own
+(``current``, first), held bit for bit against A, and timed in turns
+there and back on every input, queued back to back (``device_ms``) and
+one launch at a time (``ms``), one JSON line an input; the exit code is 1
+if ``current`` differs from A.  B and C are each checked bit-equal to A
 before they are timed; a kernel that fails to build, to launch or to agree
 ends the program with a traceback.  Times are medians of 20 launches after
 3 warm-up launches, by CUDA events on the card and by the host clock on
@@ -26,12 +38,16 @@ bytes)``, and on the card the share of the bound: the least time at
 """
 
 import argparse
+import ctypes
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..ops import gather
+from ..ops import cuda_build, gather
+from .kernel_check import cuda_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 
@@ -156,18 +172,93 @@ def default_inputs(R, C, N, device):
     return packed, idx, fx
 
 
+class Variant:
+    """One built version of ``csrc/row_gather.cu`` (the package's own where
+    ``source`` is None), its ``gather_rows_async`` launched directly."""
+
+    def __init__(self, label, source=None, flags=()):
+        self.label = label
+        if source is None:
+            self.path = gather.build_library()
+        else:
+            self.path, _ = cuda_build.build(
+                os.path.abspath(source), [*gather.NVCC_FLAGS, *flags])
+        self.lib = ctypes.CDLL(self.path)
+        own = gather.load_library().gather_rows_async_launch
+        self.lib.gather_rows_async_launch.argtypes = own.argtypes
+        self.lib.gather_rows_async_launch.restype = ctypes.c_int
+
+    def __call__(self, packed, idx):
+        rows, row_bytes = gather._checked(packed, idx, self.label)
+        out, _ = gather._launch("gather_rows_async_launch", packed, idx,
+                                rows, row_bytes, self.label, lib=self.lib)
+        return out
+
+
+def compare_variants(variants, jobs, out=print):
+    """Each variant against ``index_select`` bit for bit and timed in turns
+    there and back on each (label, table, indices) of ``jobs``; one JSON
+    line a job through ``out``.  Returns whether the first variant equals
+    ``index_select`` everywhere."""
+    ok = True
+    for label, packed, idx in jobs:
+        want = gather.gather_rows_plain(packed, idx)
+        row_bytes = packed.shape[1] * packed.element_size()
+        bound = gather.gather_bound_bytes(packed, idx)
+        line = {"table": label, "shape": list(packed.shape),
+                "dtype": str(packed.dtype), "index_dtype": str(idx.dtype),
+                "indices": int(idx.shape[0]),
+                "route": gather.gather_route(row_bytes, packed.data_ptr(),
+                                             want.data_ptr()),
+                "bound_ms": bound["total"] / HBM_BYTES_PER_S * 1e3,
+                "bit_equal": {}, "device_ms": {}, "ms": {}}
+        for v in variants:
+            got = v(packed, idx)
+            torch.cuda.synchronize()
+            line["bit_equal"][v.label] = bit_equal(got, want)
+        ok = ok and line["bit_equal"][variants[0].label]
+        for v in [*variants, *reversed(variants)]:
+            line["device_ms"].setdefault(v.label, []).append(
+                device_ms(lambda: v(packed, idx)))
+            line["ms"].setdefault(v.label, []).append(
+                cuda_ms(lambda: v(packed, idx)))
+        out(json.dumps(line))
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("R", nargs="?", type=int, default=250_000)
     ap.add_argument("C", nargs="?", type=int, default=24)
     ap.add_argument("N", nargs="?", type=int, default=2_000_000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tables", default=None,
+                    help="a torch.save file of (label, table, indices)")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="LABEL=SOURCE.cu[:FLAG,FLAG...]")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda":
         print(f"card: {torch.cuda.get_device_name(device)}")
     packed, idx, fx = default_inputs(args.R, args.C, args.N, device)
+    jobs = [("tool_default", packed, idx)]
+    if args.tables:
+        jobs += [(label, table.to(device), lin.to(device))
+                 for label, table, lin in torch.load(args.tables,
+                                                     weights_only=True)]
+    if args.variant:
+        if device.type != "cuda":
+            raise SystemExit("gather_ab: --variant needs a CUDA device")
+        variants = [Variant("current")]
+        for text in args.variant:
+            label, _, rest = text.partition("=")
+            source, _, flags = rest.partition(":")
+            variants.append(Variant(label, source,
+                                    [f for f in flags.split(",") if f]))
+        return 0 if compare_variants(variants, jobs) else 1
     run_ab(packed, idx, fx)
+    for label, table, lin in jobs[1:]:
+        run_ab(table, lin, label=f"{label}: ")
     return 0
 
 

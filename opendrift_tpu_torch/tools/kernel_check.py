@@ -74,6 +74,46 @@ def kernel_inputs(n, device, seed=0, profiles=True, surface_share=0.05):
     return t, seed_u32, h
 
 
+# The profile kernel's edge cases (profile_edge_inputs): every block of the
+# kernel has elements at the first and the last level; diffusivities of
+# 1 m2/s that carry elements some 19 m (10 levels) a substep; 2 and 201
+# levels (the smallest profile and the most the configuration allows); NaN
+# depths beside NaN seafloors.
+PROFILE_EDGE_CASES = ("level_extremes", "large_diffusivity", "levels_2",
+                      "levels_201", "nan_depths")
+PROFILE_DEPTH = 50.0       # drift:profile_depth's default (m)
+
+
+def profile_edge_inputs(case, n, device, seed=5, block=256):
+    """The inputs of :func:`kernel_inputs` with profiles of the edge
+    ``case`` (one of ``PROFILE_EDGE_CASES``) over ``PROFILE_DEPTH`` m:
+    returns (inputs, seed, level spacing h).  ``level_extremes`` puts the
+    first two elements of every ``block`` (the kernel's block of elements)
+    at the first and the last level."""
+    levels = {"levels_2": 2, "levels_201": 201}.get(case, PROFILE_LEVELS)
+    h = PROFILE_DEPTH / (levels - 1)
+    t, seed_u32, _ = kernel_inputs(n, device, seed, profiles=False)
+    r = np.random.default_rng(seed + 7)
+    scale = 1.0 if case == "large_diffusivity" else 1e-2
+    decay = np.exp(-np.arange(levels) * h / 20.0)
+    kprof = scale * decay[:, None] * r.uniform(0.5, 1.5, n)[None]
+    gradk = -np.gradient(kprof, axis=0) / h
+    z, zmin = t["z"].cpu().numpy(), t["zmin"].cpu().numpy()
+    if case == "level_extremes":
+        z[0::block] = 0.0
+        z[1::block] = -(levels - 1) * h
+        zmin[1::block] = np.minimum(zmin[1::block], -100.0)
+    if case == "nan_depths":
+        pick = r.random(n)
+        z[pick < 0.01] = np.nan
+        zmin[(pick >= 0.01) & (pick < 0.02)] = np.nan
+    t["z"] = torch.as_tensor(z, device=device)
+    t["zmin"] = torch.as_tensor(zmin, device=device)
+    t["Kprof"] = torch.as_tensor(kprof.astype(np.float32), device=device)
+    t["gradK"] = torch.as_tensor(gradk.astype(np.float32), device=device)
+    return t, seed_u32, h
+
+
 def oil_kernel_inputs(n, device, seed=1, surface_share=0.3):
     """The further per-element inputs of the oil kernel, beside those of
     :func:`kernel_inputs`: 30% of the elements exactly at the surface,

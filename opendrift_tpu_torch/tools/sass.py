@@ -188,9 +188,9 @@ def listing_of(library):
 
 
 def mixing_report(library, elements, substeps, sm_mhz, listing_file=None):
-    """{kernel: substep loops} of the windspeed and oil kernels of a built
-    mixing library (Large1994 without mixing at the surface, the main
-    path's options), each loop with its counts a substep and, where the
+    """{kernel: substep loops} of the windspeed, oil and profile kernels
+    of a built mixing library (Large1994 without mixing at the surface, the
+    main path's options), each loop with its counts a substep and, where the
     clock is known, its issue bound; or "not available" without a
     ``cuobjdump``.  ``listing_file`` gets the disassembly."""
     listing = listing_of(library)
@@ -200,10 +200,15 @@ def mixing_report(library, elements, substeps, sm_mhz, listing_file=None):
         with open(listing_file, "w") as f:
             f.write(listing)
     out = {}
-    for kernel, regex in (
-            ("visser_mixing", r"visser_mixing_kernelILi1ELb0E"),
-            ("visser_mixing_oil", r"visser_mixing_oil_kernelILi1ELb0ELb0E")):
-        rows = substep_counts(listing, regex)
+    # a substep rounds one depth to a level: FRND in the windspeed and oil
+    # kernels, F2I (rounded to an integer) in the profile kernel
+    for kernel, regex, marker in (
+            ("visser_mixing", r"visser_mixing_kernelILi1ELb0E", "FRND"),
+            ("visser_mixing_oil", r"visser_mixing_oil_kernelILi1ELb0ELb0E",
+             "FRND"),
+            ("visser_mixing_profile", r"visser_mixing_profile_kernelILb0E",
+             "F2I")):
+        rows = substep_counts(listing, regex, marker)
         for row in rows if sm_mhz else ():
             bound, by, terms = issue_bound_ms(row["per_substep"], elements,
                                               substeps, sm_mhz)

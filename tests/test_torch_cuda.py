@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from opendrift_tpu_torch.ops import mixing
+from opendrift_tpu_torch.tools import kernel_check
 
 MODELS = list(mixing.WINDSPEED_MODELS)
 
@@ -228,6 +229,23 @@ def test_mixing_kernels_equal_plain_on_edge_cases_on_the_card(n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", kernel_check.PROFILE_EDGE_CASES)
+def test_profile_kernel_equals_plain_on_its_edge_cases_on_the_card(case):
+    """The profile kernel's edge cases (chip_smoke.py check_profile_edges):
+    blocks spanning every level, walks of 10 levels a substep, 2 and 201
+    levels, NaN depths; equal by value, NaN where the plain version is
+    NaN."""
+    _card()
+    t, seed, h = kernel_check.profile_edge_inputs(case, 100_003, "cuda")
+    for at_surface in (False, True):
+        before = mixing.visser_mixing_profile.launches
+        got = _profile(t, seed, h, at_surface)
+        assert mixing.visser_mixing_profile.launches == before + 1
+        assert kernel_check.same(got, _profile(t, seed, h, at_surface, True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_reciprocal_quotient_is_the_division_for_every_depth_on_the_card():
     """Exhaustive: every float32 mixed-layer depth of the range that takes
     the reciprocal against every numerator the walk can divide by it
@@ -374,6 +392,8 @@ GATHER_CASES = [      # R, C, N, table type, index type
     (3_000, 5, 100_001, torch.float16, torch.int64),      # 10 B: 2-byte copies
     (3_000, 48, 100_001, torch.float16, torch.int32),     # compensated data
     (100, 2_000, 3_001, torch.float32, torch.int32),      # one row a stage
+    (5_000, 4, 100_001, torch.float32, torch.int64),      # 16 B rows
+    (50, 1_024, 3_001, torch.float32, torch.int32),       # 4096 B rows
     (7, 3, 5, torch.int32, torch.int32)]
 
 
@@ -452,3 +472,20 @@ def test_gather_ab_tool_on_card(capsys):
     assert gather_ab.main(["2000", "24", "100000"]) == 0
     out = capsys.readouterr().out
     assert out.count("bit-equal to A") == 2 and "CUDA events" in out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,route", [(0, "bulk"), (2, "ring"),
+                                          (4, "bulk")])
+def test_gather_route_of_a_view_on_the_card(offset, route):
+    """A table ``offset`` float32 elements into its storage: 8 bytes in it
+    takes the ring, 0 or 16 bytes in the bulk copies; both bit-equal."""
+    _card()
+    base = torch.randn(offset + 40_000 * 24, device="cuda")
+    table = base[offset:].view(40_000, 24)
+    idx = torch.randint(-3, 40_003, (200_001,), device="cuda")
+    want = gather.gather_rows_plain(table, idx)
+    got = gather.gather_rows_async(table, idx)
+    torch.cuda.synchronize()
+    assert gather.gather_route(96, table.data_ptr(), got.data_ptr()) == route
+    assert gather_ab.bit_equal(got, want)

@@ -107,6 +107,34 @@ def test_copy_width(row_bytes, addresses, width):
     assert gather.unit_bytes(row_bytes, *addresses) == width
 
 
+@pytest.mark.parametrize("row_bytes,addresses,route", [
+    (96, (256, 512), "bulk"), (352, (0, 16), "bulk"), (48, (32, 48), "bulk"),
+    (4096, (4096, 0), "bulk"),
+    (16, (32, 48), "ring"), (32, (0, 0), "ring"),  # narrower than 48 B
+    (96, (256, 520), "ring"),          # a table 8 bytes into its storage
+    (96, (260, 512), "ring"), (96, (256, 8), "ring"),  # or output
+    (88, (256, 512), "ring"), (92, (256, 512), "ring"),
+    (10, (256, 512), "ring"), (8, (0, 0), "ring")])
+def test_route(row_bytes, addresses, route):
+    """The asynchronous-copy kernel's route from the row's bytes and the
+    base addresses alone: bulk copies for whole 16-byte units of rows of
+    at least 48 bytes."""
+    assert gather.gather_route(row_bytes, *addresses) == route
+
+
+def test_route_of_real_tensors():
+    """A float16 table whose rows are a multiple of 16 bytes takes the bulk
+    route; its view 8 bytes in does not."""
+    table = torch.zeros((10, 48), dtype=torch.float16)
+    out = torch.empty((3, 48), dtype=torch.float16)
+    assert gather.gather_route(96, table.data_ptr(), out.data_ptr()) == "bulk"
+    view = torch.zeros(10 * 24 + 2)[2:].view(10, 24)
+    assert gather.gather_route(96, view.data_ptr(), out.data_ptr()) == "ring"
+    np.testing.assert_array_equal(
+        gather.gather_rows_async(view, torch.tensor([9, -1])).numpy(),
+        view.numpy()[[9, 0]])
+
+
 def test_no_copy_width_for_odd_bytes():
     with pytest.raises(ValueError):
         gather.unit_bytes(3, 256)
@@ -144,6 +172,23 @@ def test_ab_entry_point_on_the_cpu(capsys):
     assert gather_ab.main(["3000", "24", "1000", "--device", "cpu"]) == 0
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("C") and "exceeds" in last and "skipped" in last
+
+
+def test_ab_entry_point_on_saved_tables(tmp_path, capsys):
+    """``--tables FILE``: the default inputs, then each saved (label,
+    table, indices), on the CPU; ``--variant`` needs a card."""
+    packed, idx, _ = gather_ab.default_inputs(60, 22, 500, "cpu")
+    path = str(tmp_path / "tables.pt")
+    torch.save([("ocean", packed, idx.to(torch.int64)),
+                ("wind", packed[:, :6].contiguous(), idx)], path)
+    assert gather_ab.main(["300", "24", "999", "--device", "cpu",
+                           "--tables", path]) == 0
+    out = capsys.readouterr().out
+    assert out.count("bit-equal to A") == 6
+    assert "ocean: device" in out and "wind: device" in out
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        gather_ab.main(["30", "4", "9", "--device", "cpu", "--variant",
+                        "old=row_gather.cu"])
 
 
 def test_ab_inputs_are_the_jax_tools():

@@ -22,6 +22,7 @@ import torch
 
 from opendrift_tpu.ops import pallas_mixing
 from opendrift_tpu_torch.ops import mixing
+from opendrift_tpu_torch.tools import kernel_check
 
 Z_ATOL = 2e-5
 FLIP_SHARE = 0.01
@@ -116,6 +117,40 @@ def test_profile_plain_matches_pallas_emulation(mixing_at_surface):
         _t(d["z"]), _t(d["moving"]), _t(d["w"]), _t(K), _t(gradK),
         _t(d["zmin"]), d["seed"], elem=_t(d["elem"], torch.int32), **kw)
     _close(got, want)
+
+
+@pytest.mark.parametrize("case", kernel_check.PROFILE_EDGE_CASES)
+def test_profile_plain_matches_pallas_emulation_on_edge_cases(case):
+    """The profile kernel's edge cases on the card (chip_smoke.py
+    check_profile_edges) through the plain version here and the JAX
+    kernel's emulation: the first and last levels in every block, 2 and
+    201 levels, walks of 10 levels a substep, NaN depths."""
+    t, seed, h = kernel_check.profile_edge_inputs(case, N, "cpu", block=64)
+    args = [t[k] for k in ("z", "moving", "w", "Kprof", "gradK", "zmin")]
+    kw = dict(ntimes=15, dt_mix=60.0, h=h, mixing_at_surface=False)
+    want = pallas_mixing.visser_mixing_profile(
+        *(a.numpy() for a in args), jnp.uint32(seed),
+        elem=jnp.asarray(t["elem"].numpy()), interpret=True, **kw)
+    got = mixing.visser_mixing_profile(*args, seed, elem=t["elem"], **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("L,n", [(3, 8), (5, 13), (26, 257), (2, 1)])
+def test_profile_bound_bytes_counts_sectors_like_a_brute_force(L, n):
+    r = np.random.default_rng(L * 100 + n)
+    visited = r.random((L, n)) < 0.2
+    visited[0, 0] = True
+    b = mixing.profile_bound_bytes(torch.as_tensor(visited))
+    # a sector is 8 floats of the flat level-major (L * N) array
+    sectors = {(lvl * n + e) // 8 for lvl, e in zip(*np.nonzero(visited))}
+    pairs = int(visited.sum())
+    assert b["pairs"] == pairs and b["sectors"] == len(sectors)
+    assert b["total"] == n * 24 + pairs * 8           # 4 B a pair
+    assert b["sector_total"] == n * 24 + len(sectors) * 64
+    if n % 8 == 0:      # then the sectors are the (level, element // 8)
+        assert len(sectors) == len({(lvl, e // 8) for lvl, e in
+                                    zip(*np.nonzero(visited))})
+    assert b["sector_total"] >= b["total"]
 
 
 def test_wrapper_broadcasts_scalars_and_checks_shapes():
