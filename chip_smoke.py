@@ -39,7 +39,19 @@ printing its own line:
    diffusivity (through the profile kernel); each run is checked to have
    gone through its kernel, and one interval of the first is profiled
    (kernels by device time, the device's busy share);
-4. oil path: ``OpenOil(device="cuda")`` on the same ocean extended with
+4. coast path: a default ``OceanDrift(device="cuda")`` run with no
+   landmask setting, so that the bundled coastline raster is added as the
+   automatic landmask, on the same ocean moved to Lofoten (12-16 E, 67-69
+   N) with a mean eastward current and NaN currents on the raster's land
+   cells (every window goes through the host's native NaN fill, whose
+   route must be 'native'), 2M elements seeded by ``seed_from_wkt`` west of
+   the Lofoten wall, RK4, Visser mixing through the windspeed kernel,
+   three intervals after one untimed.  Checked: the windspeed kernel once
+   a step, 5-95% stranded, no active element on land by the landmask's
+   own sample at any output, no NaN where an element is valid; the fill's
+   seconds on one window's frames, native against scipy, and the mask
+   samples a step are printed;
+5. oil path: ``OpenOil(device="cuda")`` on the same ocean extended with
    waves, temperature, salinity and a coast (a reader-served landmask),
    2M elements of GENERIC MEDIUM CRUDE seeded at the surface, RK4,
    evaporation, emulsification, dispersion and wave entrainment through
@@ -48,7 +60,7 @@ printing its own line:
    the windspeed kernel not at all, the mass budget closes, some oil is
    submerged, evaporated and stranded, no NaN where an element is valid;
    one interval is profiled;
-5. sampler path: ``OceanDrift(device="cuda")`` on the same ocean with a 3D
+6. sampler path: ``OceanDrift(device="cuda")`` on the same ocean with a 3D
    ``ocean_vertical_diffusivity`` and the coast, 2M elements, RK4 on one
    corner block a step (``drift:advection_single_fetch``), 'block'
    coastline bisection, 'environment' diffusivity through the profile
@@ -58,22 +70,22 @@ printing its own line:
    no NaN where an element is valid; one interval is profiled and
    ``get_profiles`` is timed;
    then the OceanDrift main path with and without the prefetch thread;
-6. tiers and storages: one interval each on the 'x' tier (by the
+7. tiers and storages: one interval each on the 'x' tier (by the
    OPENDRIFT_XY_PAIR override, and by the budget) and the 'none' tier (the
    same field on grids refined until the table leaves the budget) and
    with ``packed_dtype`` 'float16x2' and 'float16', each held against the
    float32 'xyz' run of the same seed;
-7. gather A/B: ``tools.gather_ab.run_ab`` on the tool's default table, on
+8. gather A/B: ``tools.gather_ab.run_ab`` on the tool's default table, on
    one that fits shared memory and on the sampler path's real tables and
    row indices (the run that counts the gather kernels' launches);
-8. generic loop: one interval of OpenOil with ``TSprofiles`` and one of
+9. generic loop: one interval of OpenOil with ``TSprofiles`` and one of
    OceanDrift with ``use_pallas=False``;
-9. card against CPU: the same small OceanDrift, OpenOil and sampler-path
-   configurations on ``cuda`` and on ``cpu`` from one seed, held to the
-   slice tolerance.
+10. card against CPU: the same small OceanDrift, OpenOil, sampler-path and
+   coast-path configurations on ``cuda`` and on ``cpu`` from one seed,
+   held to the slice tolerance (the coast path with every status equal).
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+Then the seconds of each phase, one JSON line with every kernel's numbers,
+the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero.
 """
 
@@ -583,13 +595,15 @@ def check_gather_kernels(device, n=2_000_000, timed=True):
 
 # ------------------------------------------------------------- phase 3 ----
 
-def forcing(seed=0, nx=200, ny=200, nz=16, nt=5):
+def forcing(seed=0, nx=200, ny=200, nz=16, nt=5, lon0=3.0, lat0=59.0,
+            dlon=0.02, dlat=0.01):
     """A synthetic z-level ocean: time-varying 3D currents decaying with
-    depth, 2D winds and a static seafloor depth, on a 0.02 x 0.01 degree
-    lat/lon grid off western Norway, frames every 3 hours."""
+    depth, 2D winds and a static seafloor depth, on a ``dlon`` x ``dlat``
+    degree lat/lon grid from (``lon0``, ``lat0``), by default off western
+    Norway, frames every 3 hours."""
     r = np.random.default_rng(seed)
-    x = np.linspace(3.0, 3.0 + 0.02 * (nx - 1), nx)
-    y = np.linspace(59.0, 59.0 + 0.01 * (ny - 1), ny)
+    x = np.linspace(lon0, lon0 + dlon * (nx - 1), nx)
+    y = np.linspace(lat0, lat0 + dlat * (ny - 1), ny)
     depths = np.concatenate([[0.0, 2.0, 5.0, 10.0, 15.0, 20.0, 30.0, 40.0],
                              np.linspace(50.0, 400.0, nz - 8)])[:nz]
     t0 = datetime(2024, 3, 1)
@@ -1128,11 +1142,13 @@ def sampler_path(n=2_000_000, intervals=3):
     return o, launches, stats
 
 
-def prefetch_ab(n=2_000_000, intervals=3):
+def prefetch_ab(n=2_000_000, intervals=2):
     """The OceanDrift main path with the next window packed on the worker
     thread and with every window packed by the main thread, in turns (with,
     without, without, with): what the thread does to the whole run and to
-    the steps, whose kernel launches share the interpreter with it."""
+    the steps, whose kernel launches share the interpreter with it.  Two
+    intervals (one window prefetched), not the main path's three, to keep
+    the script's time as the coast path joined it."""
     import torch
     rows = []
     for threaded in (True, False, False, True):
@@ -1154,6 +1170,219 @@ def prefetch_ab(n=2_000_000, intervals=3):
         del o
     log("prefetch_ab", runs=rows)
     return rows
+
+
+# ------------------------------------------------- the coast path ---------
+
+# Lofoten and Vestfjorden, 12-16 E x 67-69 N: the bundled coastline raster
+# covers it (about a third of it land).  The seeds fill a sea polygon west of the
+# Lofoten wall, COAST_OCEAN_SHARE or more of it ocean by the raster, and a
+# mean eastward current carries them onto the wall within the run.
+COAST_WKT = ("POLYGON ((12.30 67.80, 12.85 67.80, 12.85 68.00, "
+             "12.30 68.00, 12.30 67.80))")
+COAST_OCEAN_SHARE = 0.9
+COAST_MEAN_U = 0.3                 # m/s, eastward
+COAST_STRANDED = (0.05, 0.95)      # the stranded share the path must reach
+
+
+def coast_forcing(nx=200, ny=200, **kw):
+    """The ocean of :func:`forcing` moved to Lofoten: the same 4 x 2
+    degrees at any ``nx`` x ``ny`` (0.02 x 0.01 degrees at 200 x 200), a
+    mean eastward current of COAST_MEAN_U on top of its own, and the
+    currents NaN on every cell the bundled raster marks as land, so that
+    each window's frames go through the host NaN fill."""
+    from opendrift_tpu_torch.fields import GlobalLandmask
+    current, wind, x, y, depths, times = forcing(
+        nx=nx, ny=ny, lon0=12.0, lat0=67.0, dlon=0.02 * 199 / (nx - 1),
+        dlat=0.01 * 199 / (ny - 1), **kw)
+    X, Y = np.meshgrid(x, y)
+    land = GlobalLandmask().contains(X, Y)
+    for v, mean in zip(UV, (COAST_MEAN_U, 0.0)):
+        a = current[v] + np.float32(mean)
+        a[:, :, land] = np.nan
+        current[v] = a
+    return current, wind, x, y, depths, times
+
+
+def coast_ocean_share():
+    """The share of COAST_WKT's area that the bundled raster calls ocean
+    (on a 0.002-degree lattice)."""
+    from opendrift_tpu_torch.fields import GlobalLandmask
+    from opendrift_tpu_torch.utils.shapefile import points_in_ring
+    ring = np.array([[float(v) for v in pair.split()] for pair in
+                     COAST_WKT.split("((")[1].rstrip(")").split(",")])
+    X, Y = np.meshgrid(np.arange(ring[:, 0].min(), ring[:, 0].max(), 0.002),
+                       np.arange(ring[:, 1].min(), ring[:, 1].max(), 0.002))
+    inside = points_in_ring(X, Y, ring)
+    return float(1.0 - GlobalLandmask().contains(X[inside], Y[inside])
+                 .mean())
+
+
+def coast_simulation(device, n, seed=0, forcing_kw=None):
+    """A default OceanDrift run of ``n`` elements on the Lofoten ocean, set
+    up as a user would, with no landmask setting: the automatic landmask
+    (the bundled raster) strands them.  RK4, Visser mixing with
+    windspeed_Large1994, horizontal diffusivity 10 m2/s, dt = 900 s with
+    60 s substeps, seeded by ``seed_from_wkt`` over the top 20 m."""
+    from opendrift_tpu_torch.models.oceandrift import OceanDrift
+    from opendrift_tpu_torch.fields import ArrayReader
+    current, wind, x, y, depths, times = coast_forcing(**(forcing_kw or {}))
+    o = OceanDrift(loglevel=40, device=device, seed=seed)
+    o.add_reader(ArrayReader(current, x, y, times, depths=depths,
+                             name="ocean"))
+    o.add_reader(ArrayReader(wind, x, y, times, name="wind"))
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "windspeed_Large1994")
+    o.set_config("vertical_mixing:timestep", 60.0)
+    o.set_config("drift:horizontal_diffusivity", 10.0)
+    r = np.random.default_rng(seed + 1)
+    o.seed_from_wkt(COAST_WKT, time=times[0], number=n,
+                    z=-r.uniform(0.0, 20.0, n))
+    return o
+
+
+def check_coast_result(o, n, frames):
+    """The coast path's own checks: no NaN where an element is valid, the
+    stranded share within COAST_STRANDED, and at every output no active
+    element on land by the landmask's own ``sample`` on the run's device.
+    Returns the shares."""
+    import torch
+    shares = check_sampler_result(o, n, frames)
+    lo, hi = COAST_STRANDED
+    if not lo <= shares["stranded_share"] <= hi:
+        raise AssertionError(f"{shares['stranded_share']} of the elements "
+                             f"stranded, outside [{lo}, {hi}]")
+    lm = o.env.readers["global_landmask"]
+    state = lm.device_state()
+    status = np.asarray(o.result["status"].values)
+    on_land = 0
+    for k in range(frames):
+        act = status[:, k] == 0
+        lon, lat = (torch.as_tensor(np.asarray(o.result[v].values)[act, k],
+                                    device=o.device) for v in ("lon", "lat"))
+        vals, covers = lm.sample(state, ["land_binary_mask"], 0.0, lon, lat,
+                                 None)
+        on_land += int(((vals["land_binary_mask"] > 0.5) | ~covers).sum())
+    if on_land:
+        raise AssertionError(f"{on_land} active elements on land")
+    return shares
+
+
+def fill_seconds(reader):
+    """Seconds of the host scrub and NaN fill (``_scrub_frame``) of one
+    window's frames of ``reader``, every variable it packs, through the
+    native fill and through the scipy fallback, in turns (native, scipy,
+    scipy, native)."""
+    from opendrift_tpu_torch.utils import native
+    tidx = reader._frame_indices(None, None)
+    frames = [(v, ti) for v in reader._group3 + reader._group2
+              for ti in tidx] + [(v, 0) for v in reader._groups]
+    raw = [(v, np.asarray(reader._read_frame(v, ti, slice(None), reader._iy,
+                                             reader._ix), np.float32))
+           for v, ti in frames]
+    real = native.get_lib
+    out = {"native": [], "scipy": []}
+    for route in ("native", "scipy", "scipy", "native"):
+        if route == "scipy":
+            native.get_lib = lambda: None
+        try:
+            t = time.perf_counter()
+            for v, a in raw:
+                reader._scrub_frame(v, a)
+            out[route].append(time.perf_counter() - t)
+        finally:
+            native.get_lib = real
+    return {"frames": len(raw), "native_s": out["native"],
+            "scipy_s": out["scipy"]}
+
+
+def coast_path(n=2_000_000, intervals=3):
+    """The coast path at full width: one untimed interval, then the timed
+    run; returns (launches of the windspeed kernel, the run's numbers)."""
+    import torch
+    from opendrift_tpu_torch.fields import GlobalLandmask
+    from opendrift_tpu_torch.ops import interp, mixing
+    route = interp.fill_route()
+    log("fill_route", route=route)
+    if route != "native":
+        raise AssertionError(f"the host NaN fill took the {route!r} route")
+    share = coast_ocean_share()
+    if share < COAST_OCEAN_SHARE:
+        raise AssertionError(f"the seed polygon is {share} ocean")
+    o = coast_simulation("cuda", n)
+    run_sampler(o, 1)
+    first = n * 10 / (o.timers["main loop"]
+                      - o.timers.get("main loop:readers", 0.0))
+    del o
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    o = coast_simulation("cuda", n)
+    for k in kernels:
+        k.launches = 0
+    samples = []
+    real = GlobalLandmask.sample
+
+    def counted(self, *args, **kw):
+        samples.append(1)
+        return real(self, *args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    GlobalLandmask.sample = counted
+    try:
+        secs = run_sampler(o, intervals)
+    finally:
+        GlobalLandmask.sample = real
+    launches = mixing.visser_mixing.launches
+    steps = 10 * intervals
+    assert launches == steps, f"{launches} K1 launches in {steps} steps"
+    assert mixing.visser_mixing_oil.launches == 0
+    assert mixing.visser_mixing_profile.launches == 0
+    assert [r.name for r, _ in o.env._plan][-1] == "global_landmask"
+    checks = check_coast_result(o, n, intervals + 1)
+    # one mask sample in each pre-update (every step and the final
+    # snapshot), three more on a step where something strands
+    fetches = steps + 1
+    stats = run_stats(o, n, steps, secs)
+    stats["particle_steps_per_s_steps_only_untimed_interval"] = first
+    log("coast_path", fill_route=route, seed_polygon_ocean_share=share,
+        launches=launches, landmask_samples=len(samples),
+        landmask_samples_per_step=len(samples) / fetches,
+        bisection_steps=(len(samples) - fetches) / 3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        fill=fill_seconds(o.env.readers["ocean"]), **checks, **stats)
+    profile_interval(o, phase="coast_profile")
+    return launches, stats
+
+
+def coast_card_against_cpu(n=4096, intervals=2):
+    """The coast path's configuration, small, on the card and on the CPU
+    from one seed: every status equal at every output, lon/lat/z within
+    the slice tolerance."""
+    out = {}
+    small = dict(nx=60, ny=60)
+    for device in ("cuda", "cpu"):
+        o = coast_simulation(device, n, forcing_kw=small)
+        o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+              time_step_output=9000)
+        out[device] = o.result
+    status = [np.asarray(out[d]["status"].values) for d in ("cuda", "cpu")]
+    if not np.array_equal(*status):
+        raise AssertionError(f"card and CPU disagree on "
+                             f"{int((status[0] != status[1]).sum())} "
+                             f"statuses")
+    errs = {}
+    for var in ("lon", "lat", "z"):
+        err, ok = agree(out["cuda"][var].values, out["cpu"][var].values,
+                        SLICE_MEDIAN_ATOL[var], SLICE_OUTLIER_ATOL[var],
+                        SLICE_OUTLIER_SHARE)
+        errs[var] = err
+        if not ok:
+            raise AssertionError(f"card and CPU disagree on {var}: {err}")
+    stranded = float((status[1][:, -1]
+                      == o.status_categories.index("stranded")).mean())
+    log("coast_card_vs_cpu", elements=n, intervals=intervals,
+        stranded_share=stranded, max_abs_err=errs)
+    return errs
 
 
 # -------------------------------------------- tiers and storages ----------
@@ -1431,41 +1660,59 @@ def main():
         gather_nvcc_flags=gather.NVCC_FLAGS, ptxas=ptxas(mixing.build_log),
         gather_ptxas=ptxas(gather.build_log))
 
-    rows = check_kernels("cuda")
-    rows["visser_mixing_oil"] = check_oil_kernel("cuda")
-    check_ragged_sizes("cuda")
-    check_profile_edges("cuda")
-    quotient_sweep()
-    sass_phase(rows)
-    rows.update(check_gather_kernels("cuda"))
-    launches, stats = main_path()
-    launches["visser_mixing_oil"], oil_stats = oil_path()
-    for name, st in (("visser_mixing", stats),
-                     ("visser_mixing_oil", oil_stats)):
-        mixing_s = rows[name]["ms"] * 1e-3 * launches[name]
-        log("mixing_share", kernel=name, mixing_s=mixing_s,
+    seconds = {"build": time.perf_counter() - t}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t
+
+    rows = timed("check_kernels", check_kernels, "cuda")
+    rows["visser_mixing_oil"] = timed("check_oil_kernel", check_oil_kernel,
+                                      "cuda")
+    timed("check_ragged_sizes", check_ragged_sizes, "cuda")
+    timed("check_profile_edges", check_profile_edges, "cuda")
+    timed("quotient_sweep", quotient_sweep)
+    timed("sass_phase", sass_phase, rows)
+    rows.update(timed("check_gather_kernels", check_gather_kernels, "cuda"))
+    launches, stats = timed("main_path", main_path)
+    coast_launches, coast_stats = timed("coast_path", coast_path)
+    launches["visser_mixing_oil"], oil_stats = timed("oil_path", oil_path)
+    for path, name, count, st in (
+            ("main", "visser_mixing", launches["visser_mixing"], stats),
+            ("oil", "visser_mixing_oil", launches["visser_mixing_oil"],
+             oil_stats),
+            ("coast", "visser_mixing", coast_launches, coast_stats)):
+        mixing_s = rows[name]["ms"] * 1e-3 * count
+        log("mixing_share", path=path, kernel=name, mixing_s=mixing_s,
             share_of_steps=mixing_s / (st["main_loop_s"] - st["readers_s"]))
     # the profile kernel's count is the sampler path's: reader-served
     # profiles, once a step (its 'constant' run above is logged there)
-    o, launches["visser_mixing_profile"], sampler_stats = sampler_path()
+    o, launches["visser_mixing_profile"], sampler_stats = timed(
+        "sampler_path", sampler_path)
     mixing_s = rows["visser_mixing_profile"]["ms"] * 1e-3 \
         * launches["visser_mixing_profile"]
     log("mixing_share", kernel="visser_mixing_profile", mixing_s=mixing_s,
         share_of_steps=mixing_s / (sampler_stats["main_loop_s"]
                                    - sampler_stats["readers_s"]))
-    launches["gather_rows_async"], launches["gather_rows_smem"] = \
-        gather_ab_phase(o)
+    launches["gather_rows_async"], launches["gather_rows_smem"] = timed(
+        "gather_ab_phase", gather_ab_phase, o)
     del o
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"the main path never launched {name}")
         rows[name]["launches"] = count
-    prefetch_ab()
-    tiers_and_storages()
-    generic_loop_phase()
-    card_against_cpu()
-    oil_card_against_cpu()
-    sampler_card_against_cpu()
+    for name, fn in (("prefetch_ab", prefetch_ab),
+                     ("tiers_and_storages", tiers_and_storages),
+                     ("generic_loop", generic_loop_phase),
+                     ("card_against_cpu", card_against_cpu),
+                     ("oil_card_against_cpu", oil_card_against_cpu),
+                     ("sampler_card_against_cpu", sampler_card_against_cpu),
+                     ("coast_card_against_cpu", coast_card_against_cpu)):
+        timed(name, fn)
+    log("phase_seconds", total=time.perf_counter() - t, **seconds)
 
     kernels = [{k: v for k, v in row.items()
                 if k not in ("bytes", "ops")}

@@ -7,12 +7,16 @@ of the port is held against (``tests/test_torch_*.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The port grows one slice at a time (ROADMAP.md, queue A): so far an
-OceanDrift run on gridded forcing with Visser vertical mixing, and an
-OpenOil run (weathering, wave entrainment, stranding).  The three mixing
-kernels are hand-written CUDA (``csrc/visser_mixing.cu``).
+OceanDrift run on gridded forcing with Visser vertical mixing, the
+automatic coastline landmask and the polygon seeders, an OpenOil run
+(weathering, wave entrainment, stranding), and the result's round trip
+through :func:`open`.  The three mixing kernels are hand-written CUDA
+(``csrc/visser_mixing.cu``); the host NaN fill is C++ built with g++
+(``csrc/fieldpipe.cpp``).
 """
 
 import importlib
+import logging
 
 __version__ = "0.1.0"
 
@@ -37,3 +41,45 @@ def get_model(model_name):
             "zoo is ROADMAP item A.12)")
     module = importlib.import_module(_MODEL_REGISTRY[model_name])
     return getattr(module, model_name)
+
+
+def open(filename, device=None):
+    """A simulation of the file's model class in Result mode, its result
+    and config read from an output file (reference
+    opendrift/__init__.py:46-88); on ``cuda`` unless ``device`` says
+    otherwise, as every entry point."""
+    from .export.io_netcdf import read_result
+    from .models.base import Mode
+    result = read_result(filename)
+    cls = get_model(result.attrs.get("opendrift_class"))
+    o = cls(loglevel=logging.WARNING, device=device)
+    o.result = result
+    o._config_from_attributes(result.attrs)
+    o.mode = Mode.Result
+    return o
+
+
+def versions():
+    """The versions of the port and what it runs on (reference
+    opendrift/__init__.py:90): torch, its CUDA and the card in place of
+    the JAX package's jax and its devices."""
+    import platform
+    import numpy
+    import scipy
+    import torch
+    if torch.cuda.is_available():
+        devices = [torch.cuda.get_device_name(i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = "no CUDA device"
+    return (f"------------------------------------------------------\n"
+            f"Software and hardware:\n"
+            f"  opendrift_tpu_torch version {__version__}\n"
+            f"  platform {platform.platform()}\n"
+            f"  python version {platform.python_version()}\n"
+            f"  numpy version {numpy.__version__}\n"
+            f"  scipy version {scipy.__version__}\n"
+            f"  torch version {torch.__version__}\n"
+            f"  torch CUDA version {torch.version.cuda}\n"
+            f"  CUDA devices {devices}\n"
+            f"------------------------------------------------------\n")

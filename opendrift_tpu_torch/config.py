@@ -156,3 +156,23 @@ class Configurable:
                 v = int(v)
             out[f"config_{key}"] = v
         return out
+
+    def _config_from_attributes(self, attrs):
+        """The inverse of :meth:`_config_to_attributes`: set each known
+        key of ``{'config_<key>': value}`` (a result file's attributes)."""
+        for key, value in attrs.items():
+            if not key.startswith("config_"):
+                continue
+            ckey = key[len("config_"):]
+            if ckey not in self._config:
+                continue
+            item = self._config[ckey]
+            if isinstance(value, str) and value == "None":
+                value = None
+            elif item.type == "bool":
+                value = bool(int(value))
+            elif item.type == "int" and value is not None:
+                value = int(value)
+            elif item.type == "float" and value is not None:
+                value = float(value)
+            item.value = value

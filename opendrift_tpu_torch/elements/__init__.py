@@ -1,1 +1,1 @@
-from .elements import LagrangianArray, ElementState  # noqa: F401
+from .elements import LagrangianArray, ElementState, PassiveTracer  # noqa: F401,E501

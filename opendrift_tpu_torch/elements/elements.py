@@ -72,6 +72,11 @@ class LagrangianArray:
         return cls.variables[name].get("default", 0.0)
 
 
+class PassiveTracer(LagrangianArray):
+    """Trivial element (reference: opendrift/elements/passivetracer.py)."""
+    variables = LagrangianArray.variables
+
+
 class ElementState:
     """Fixed-capacity structure of arrays: ``data`` maps variable name ->
     tensor whose last axis is the element axis, all on one device:

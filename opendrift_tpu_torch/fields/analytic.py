@@ -1,8 +1,9 @@
 """Analytic field readers.
 
-Port of the part of ``opendrift_tpu/fields/analytic.py`` this slice
-needs: ``ConstantReader`` (the ``environment:constant:*`` configs) and
-``DoubleGyre`` (the trajectory golden).  Each sampler evaluates its field
+Port of the part of ``opendrift_tpu/fields/analytic.py`` the port runs:
+``ConstantReader`` (the ``environment:constant:*`` configs),
+``DoubleGyre`` (the trajectory golden) and ``PerElementReader``
+(``seed_elements(..., environment={...})``).  Each sampler evaluates its field
 at the given positions on their device; the step time ``t`` is a host
 float32 scalar, so time-only terms are computed on the host in float32
 exactly as the JAX package computes them on the device.  The other
@@ -77,3 +78,52 @@ class ConstantReader(ContinuousReader):
     def sample(self, dev_state, varnames, t, lon, lat, z):
         values = {v: torch.full_like(lon, self._values[v]) for v in varnames}
         return values, torch.ones_like(lon, dtype=torch.bool)
+
+
+class PerElementReader(ContinuousReader):
+    """Constant environment values per element ID (reference:
+    reader_constant's ``_parameter_value_map`` with ``element_ID``, used by
+    ``seed_elements(..., environment={...})``, basemodel/__init__.py:
+    1228-1237).  Values live in a table indexed by element ID; the engine
+    passes the IDs as ``member``.  IDs without a value sample NaN, so the
+    priority chain falls through to the next reader or the fallback."""
+
+    needs_ids = True
+
+    def __init__(self):
+        self.variables = []
+        self._chunks = {}          # var -> [(ids, values)]
+        super().__init__()
+        self.name = "per_element_environment"
+
+    def add(self, variable, ids, values):
+        ids = np.asarray(ids, dtype=np.int64)
+        values = np.broadcast_to(np.asarray(values, dtype=np.float32),
+                                 ids.shape)
+        if variable not in self._chunks:
+            self._chunks[variable] = []
+            self.variables.append(variable)
+        self._chunks[variable].append((ids, values.copy()))
+
+    def device_state(self, window_start=None, window_end=None):
+        size = 1 + max(int(ids.max()) for lst in self._chunks.values()
+                       for ids, _ in lst)
+        tables = {}
+        for var, lst in self._chunks.items():
+            tab = np.full(size + 1, np.nan, dtype=np.float32)
+            for ids, vals in lst:
+                tab[ids] = vals
+            tables[var] = tab
+        return tables
+
+    def sample(self, dev_state, varnames, t, lon, lat, z, member=None):
+        covers = torch.ones_like(lon, dtype=torch.bool)
+        if member is None:
+            return {v: torch.full_like(lon, float("nan"))
+                    for v in varnames}, covers
+        out = {}
+        for v in varnames:
+            tab = dev_state[v]
+            out[v] = tab[torch.clamp(member.to(torch.int64), 0,
+                                     tab.shape[0] - 1)]
+        return out, covers

@@ -60,6 +60,8 @@ class Environment:
                 suffix += 1
                 name = f"{base}_{suffix}"
             reader.name = name
+            # a reader that keeps a device-resident state builds it here
+            reader.device = self.device
             self.readers[name] = reader
             for var in reader.variables:
                 if variables is not None and var not in variables:
@@ -210,12 +212,13 @@ class Environment:
         return False
 
     def get_environment(self, dev_states, varnames, t, lon, lat, z,
-                        key=None, block_ctx=None):
+                        key=None, member=None, block_ctx=None):
         """Sample ``varnames`` at the element positions and host time
         ``t`` through the priority chains (reference
         environment.py:499-923).  ``key``: optional rng key enabling the
         configured current/wind uncertainty noise (reference
-        environment.py:865-891).  ``block_ctx``: optional (plan index,
+        environment.py:865-891).  ``member``: the element IDs, for readers
+        keyed on them (``needs_ids``).  ``block_ctx``: optional (plan index,
         corner block, covers0): that reader's variables are evaluated from
         the gathered block, with no further gather (single-fetch RK shares
         one block between the fetch and every stage).  Returns
@@ -238,6 +241,9 @@ class Environment:
                 vals, covers = reader.sample_from_block(
                     dev_state, block_ctx[1], t, lon, lat, fetch)
                 covers = covers & block_ctx[2]
+            elif member is not None and getattr(reader, "needs_ids", False):
+                vals, covers = reader.sample(dev_state, fetch, t, lon, lat,
+                                             z, member=member)
             else:
                 vals, covers = reader.sample(dev_state, fetch, t, lon, lat,
                                              z)

@@ -28,6 +28,18 @@ from .ops.interp import CompensatedTable, SplitTable
 HOST_KEYS = ("times",)
 
 
+def resolve_device(device):
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another.  A CUDA device without a card raises; the port never
+    carries on quietly on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "opendrift_tpu_torch runs on a CUDA device by default and none "
+            "is available; pass device='cpu' to run on the CPU")
+    return device
+
+
 def _tensor(array, device):
     """A tensor on ``device`` from a host array (copied first when the
     array is read-only, as views of other frameworks' buffers are)."""
@@ -100,8 +112,10 @@ def corner_block_to_numpy(block):
 
 def device_state_from_numpy(arrays, device):
     """A reader's host state -> its device state: arrays become tensors on
-    ``device`` (float32 stays float32), table storages their device form,
-    host keys stay numpy, other entries pass through."""
+    ``device`` (float32 stays float32), tensors go there (no copy when
+    they are there already: a static raster's state is built once), table
+    storages their device form, host keys stay numpy, other entries pass
+    through."""
     out = {}
     for k, v in dict(arrays).items():
         if k in HOST_KEYS:
@@ -109,6 +123,8 @@ def device_state_from_numpy(arrays, device):
         elif isinstance(v, (CompensatedTable, SplitTable)) or (
                 isinstance(v, dict) and "kind" in v):
             out[k] = table_from_numpy(v, device)
+        elif torch.is_tensor(v):
+            out[k] = v.to(device)
         elif isinstance(v, (np.ndarray, np.generic)) or hasattr(
                 v, "__array__"):
             out[k] = _tensor(v, device)

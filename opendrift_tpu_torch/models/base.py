@@ -18,14 +18,15 @@ matches upstream; the internals follow the JAX package:
   with threefry bit-equal to the JAX package's (``rng.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card a CUDA request raises.  Deferred (ROADMAP A.6/A.7/A.14):
-the automatic coastline landmask and block-backed bisection, the
-``seed_*`` helpers other than ``seed_elements`` and ``seed_cone``, domain
-decomposition and particle sharding, and the
-post-processing and plotting mixins.
+without a card a CUDA request raises.  Deferred: seeding from files and
+datasets (ROADMAP A.9), domain decomposition, particle sharding and
+capacity padding (A.14), and the post-processing and plotting mixins
+(A.13).
 """
 
+import json
 import logging
+import re
 from datetime import datetime, timedelta
 from enum import Enum
 from functools import wraps
@@ -41,10 +42,14 @@ from ..errors import WrongMode
 from ..elements import LagrangianArray, ElementState
 from ..elements.elements import NOT_RELEASED, ACTIVE, \
     STANDARD_STATUS_CATEGORIES
+from ..fields.analytic import PerElementReader
 from ..fields.environment import Environment
-from ..interop import element_state_from_numpy
-from ..utils.geodesic import direct_np, inverse_np, geodesic_step, \
-    geodesic_step_second_order
+from ..fields.landmask import GlobalLandmask
+from ..interop import element_state_from_numpy, resolve_device
+from ..utils.crs import LatLonCRS
+from ..utils.geodesic import direct_np, inverse_np, geodesic_inverse, \
+    geodesic_step, geodesic_step_second_order
+from ..utils.shapefile import points_in_ring, shapefile_polygons
 from ..utils.dataset import TrajectoryDataset, DataVar
 from ..utils.xp import tnp
 from .physics import PhysicsContext
@@ -74,18 +79,6 @@ def require_mode(mode, error=None):
     return decorator
 
 
-def resolve_device(device):
-    """The device an entry point runs on: ``cuda`` unless the caller asks
-    for another.  A CUDA device without a card raises; the port never
-    carries on quietly on the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "opendrift_tpu_torch runs on a CUDA device by default and none "
-            "is available; pass device='cpu' to run on the CPU")
-    return device
-
-
 def _seconds(value):
     """Accept a timedelta or a number of seconds."""
     if isinstance(value, timedelta):
@@ -112,6 +105,7 @@ class OpenDriftSimulation(Timeable, Configurable):
         self.rng_seed = seed
         self._np_random = np.random.RandomState(seed)
         self.simulation_extent = None
+        self.messages = []
         if loglevel is not None:
             logging.basicConfig(level=loglevel)
         self.env = Environment(self.required_variables, self.device)
@@ -325,7 +319,7 @@ class OpenDriftSimulation(Timeable, Configurable):
             times = np.array([t0 + frac[i] * (t1 - t0)
                               for i in range(number)])
         elif isinstance(time, datetime):
-            times = np.array([time] * number)
+            times = np.full(number, time, dtype=object)
         else:
             times = np.asarray(time)
             if len(times) == 1:
@@ -348,10 +342,6 @@ class OpenDriftSimulation(Timeable, Configurable):
 
         if origin_marker is None:
             origin_marker = len(self._seedings)
-        if "environment" in kwargs:
-            raise NotImplementedError(
-                "per-element environment seeding is not ported yet "
-                "(ROADMAP A.6)")
         props = {}
         for name in self.ElementType.variables:
             if name in ("lon", "lat", "origin_marker", "ID", "status"):
@@ -369,10 +359,23 @@ class OpenDriftSimulation(Timeable, Configurable):
                 raise ValueError(
                     f"Seed property {name} has length {len(v)} != {number}")
             props[name] = v
+        # per-element constant environment (reference :1228-1237: a
+        # constant reader keyed on the element IDs, at top priority)
+        per_elem_env = kwargs.pop("environment", None)
         unknown = [k for k in kwargs if k not in ("z",)]
         if unknown:
             raise ValueError(f"Unknown seed properties for "
                              f"{type(self).__name__}: {unknown}")
+        if per_elem_env is not None:
+            ids = np.arange(self.num_elements_scheduled_total + 1,
+                            self.num_elements_scheduled_total + number + 1)
+            rdr = getattr(self, "_per_element_reader", None)
+            if rdr is None:
+                rdr = self._per_element_reader = PerElementReader()
+            for var, vals in per_elem_env.items():
+                rdr.add(var, ids, vals)
+            # (re-)register the served variables at top priority
+            self.env.add_reader(rdr, first=True)
         seeding = {
             "lon": lon.astype(np.float32),
             "lat": lat.astype(np.float32),
@@ -414,12 +417,177 @@ class OpenDriftSimulation(Timeable, Configurable):
         return self.seed_elements(lons, lats, time=time, radius=radius,
                                   number=number, **kwargs)
 
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_within_polygon(self, lons, lats, number=None, **kwargs):
+        """Seed uniformly inside a polygon given by vertex arrays
+        (reference basemodel/__init__.py:1459), by rejection sampling with
+        cos(lat) area weighting: the same ``self._np_random`` draws as the
+        JAX package, so the same positions for the same seed."""
+        lons = np.asarray(lons, dtype=np.float64)
+        lats = np.asarray(lats, dtype=np.float64)
+        if number is None:
+            number = int(self.get_config("seed:number"))
+        ring = np.column_stack([lons, lats])
+        lo0, lo1 = lons.min(), lons.max()
+        la0, la1 = lats.min(), lats.max()
+        if not (-360 <= lo0 <= 360 and -90 <= la0 <= 90):
+            raise ValueError(
+                "Polygon coordinates look projected (not lon/lat): "
+                f"lon {lo0}..{lo1}, lat {la0}..{la1}")
+        out_lon = np.empty(0)
+        out_lat = np.empty(0)
+        for _attempt in range(1000):
+            if len(out_lon) >= number:
+                break
+            n_try = max(4 * number, 128)
+            cand_lon = self._np_random.uniform(lo0, lo1, n_try)
+            sin0, sin1 = np.sin(np.radians([la0, la1]))
+            cand_lat = np.degrees(np.arcsin(
+                self._np_random.uniform(sin0, sin1, n_try)))
+            inside = points_in_ring(cand_lon, cand_lat, ring)
+            out_lon = np.concatenate([out_lon, cand_lon[inside]])
+            out_lat = np.concatenate([out_lat, cand_lat[inside]])
+        if len(out_lon) < number:
+            raise ValueError(
+                "Could not place elements inside the polygon (degenerate "
+                "or zero-area geometry?)")
+        return self.seed_elements(out_lon[:number], out_lat[:number],
+                                  number=number, **kwargs)
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_letters(self, text, lon, lat, time, number, scale=1.2,
+                     **kwargs):
+        """Seed elements within the glyph outlines of ``text`` anchored at
+        (lon, lat), one :meth:`seed_within_polygon` per glyph polygon
+        (reference basemodel/__init__.py:1635-1652).  ``scale`` is the
+        glyph height in degrees; ``number`` is per polygon.  The glyphs
+        come from matplotlib's fonts, so this needs matplotlib."""
+        try:
+            from matplotlib.textpath import TextPath
+            from matplotlib.font_manager import FontProperties
+        except ImportError as e:
+            raise ImportError("seed_letters draws its glyphs with "
+                              "matplotlib, which is not installed") from e
+        fp = FontProperties(family="DejaVu Sans", weight="bold")
+        path = TextPath((lon, lat), text, size=1 * scale, prop=fp)
+        for p in path.to_polygons():
+            if len(p) < 3:
+                continue
+            self.seed_within_polygon(lons=p[:, 0], lats=p[:, 1],
+                                     number=number, time=time, **kwargs)
+        return self
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_repeated_segment(self, lons, lats, start_time, end_time=None,
+                              time_interval=None, number_per_segment=None,
+                              **kwargs):
+        """Seed the same line segment repeatedly in time
+        (reference basemodel/__init__.py:1402-1457)."""
+        if number_per_segment is None:
+            number_per_segment = int(self.get_config("seed:number"))
+        az12, _, dist = inverse_np(lats[0], lons[0], lats[-1], lons[-1])
+        frac = np.linspace(0, 1, number_per_segment)
+        seg_lats, seg_lons = direct_np(
+            np.repeat(lats[0], number_per_segment),
+            np.repeat(lons[0], number_per_segment),
+            np.repeat(az12, number_per_segment), frac * dist)
+        if time_interval is not None and end_time is not None:
+            t = start_time
+            while t <= end_time:
+                self.seed_elements(seg_lons, seg_lats, time=t,
+                                   number=number_per_segment, **kwargs)
+                t = t + time_interval
+        else:
+            self.seed_elements(seg_lons, seg_lats, time=start_time,
+                               number=number_per_segment, **kwargs)
+        return self
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_from_geojson(self, gjson, **kwargs):
+        """Seed from a GeoJSON string or dict: Point, LineString or Polygon
+        features with an optional 'time' and seed properties
+        (reference basemodel/__init__.py:1356-1400)."""
+        if isinstance(gjson, str):
+            gjson = json.loads(gjson)
+        if gjson.get("type") == "FeatureCollection":
+            for feature in gjson["features"]:
+                self.seed_from_geojson(feature, **kwargs)
+            return self
+        if gjson.get("type") != "Feature":
+            raise ValueError("GeoJSON must be a Feature/FeatureCollection")
+        props = dict(gjson.get("properties") or {})
+        t = props.pop("time", None)
+        if t is not None:
+            if isinstance(t, (list, tuple)):
+                t = [datetime.fromisoformat(str(x).rstrip("Z")) for x in t]
+            else:
+                t = datetime.fromisoformat(str(t).rstrip("Z"))
+        props.update(kwargs)
+        props.setdefault("time", t)
+        geom = gjson["geometry"]
+        coords = np.asarray(geom["coordinates"], dtype=float)
+        if geom["type"] == "Point":
+            return self.seed_elements(coords[0], coords[1], **props)
+        if geom["type"] == "LineString":
+            return self.seed_cone(coords[[0, -1], 0], coords[[0, -1], 1],
+                                  **props)
+        if geom["type"] == "Polygon":
+            ring = np.asarray(geom["coordinates"][0], dtype=float)
+            return self.seed_within_polygon(ring[:, 0], ring[:, 1], **props)
+        raise ValueError(f"Unsupported geometry: {geom['type']}")
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_from_wkt(self, wkt, time, **kwargs):
+        """Seed inside POLYGON/MULTIPOLYGON or at POINT WKT strings
+        (reference basemodel/__init__.py:1561-1571), parsed with a
+        from-scratch reader (no GDAL); a POLYGON's holes are ignored, as
+        in the JAX package."""
+        wkt = wkt.strip()
+        if wkt.upper().startswith("POINT"):
+            vals = [float(v) for v in re.findall(r"[-+0-9.eE]+", wkt)]
+            return self.seed_elements(vals[0], vals[1], time=time, **kwargs)
+        rings = re.findall(r"\(([^()]+)\)", wkt)
+        if not rings:
+            raise ValueError(f"Cannot parse WKT: {wkt[:60]}")
+        for ring in rings[:1] if wkt.upper().startswith("POLYGON") \
+                else rings:
+            pts = np.array([[float(x) for x in pair.split()]
+                            for pair in ring.split(",")])
+            self.seed_within_polygon(pts[:, 0], pts[:, 1], time=time,
+                                     **kwargs)
+        return self
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_from_shapefile(self, shapefile, number=None, **kwargs):
+        """Seed uniformly inside the polygons of an ESRI shapefile
+        (reference basemodel/__init__.py:1573-1583), the elements shared
+        out by each ring's (rough) area."""
+        polys = shapefile_polygons(shapefile)
+        if not polys:
+            raise ValueError(f"No polygons found in {shapefile}")
+        if number is None:
+            number = int(self.get_config("seed:number"))
+        trapezoid = getattr(np, "trapezoid", None) or np.trapz
+        areas = np.array([abs(trapezoid(p[:, 1], p[:, 0])) for p in polys])
+        areas = areas / max(areas.sum(), 1e-30)
+        counts = np.maximum((areas * number).astype(int), 0)
+        counts[0] += number - counts.sum()
+        for poly, cnt in zip(polys, counts):
+            if cnt > 0:
+                self.seed_within_polygon(poly[:, 0], poly[:, 1],
+                                         number=int(cnt), **kwargs)
+        return self
+
     # --------------------------------------------------------- status -----
-    def status_code(self, reason):
-        """The status code of a deactivation reason (registering it)."""
+    def register_status(self, reason):
+        """Ensure a deactivation reason has a status code; return it."""
         if reason not in self.status_categories:
             self.status_categories.append(reason)
         return self.status_categories.index(reason)
+
+    def status_code(self, reason):
+        """The status code of a deactivation reason (registering it)."""
+        return self.register_status(reason)
 
     # ------------------------------------------------------------- run ----
     @require_mode(Mode.Ready, "Elements must be seeded before running")
@@ -551,7 +719,53 @@ class OpenDriftSimulation(Timeable, Configurable):
         self.timer_end("postprocessing")
         self.timer_end("total time")
         self.mode = Mode.Result
+        self.post_run()
         return self
+
+    def post_run(self):
+        """Model hook called after the run completes
+        (reference basemodel/__init__.py post_run)."""
+
+    def simulation_direction(self):
+        """+1 forward, -1 backward (reference basemodel
+        ``simulation_direction``)."""
+        ts = getattr(self, "time_step", None)
+        if ts is None:
+            return 1
+        secs = ts.total_seconds() if hasattr(ts, "total_seconds") \
+            else float(ts)
+        return -1 if secs < 0 else 1
+
+    def SRS(self):
+        """The simulation's coordinate reference system: geographic WGS84
+        (positions are lon/lat; reference basemodel ``SRS``)."""
+        return LatLonCRS("+proj=latlong +datum=WGS84")
+
+    def add_metadata(self, key, value):
+        """Attach a global attribute to the result and its output file
+        (reference basemodel ``add_metadata``)."""
+        if not hasattr(self, "_extra_metadata"):
+            self._extra_metadata = {}
+        self._extra_metadata[key] = value
+
+    @staticmethod
+    def index_of_first_and_last(array):
+        """Index of the first and the last finite value of each row; -1
+        for a row with none."""
+        ok = np.isfinite(array)
+        any_ok = ok.any(axis=1)
+        first = np.where(any_ok, ok.argmax(axis=1), -1)
+        last = np.where(any_ok,
+                        array.shape[1] - 1 - ok[:, ::-1].argmax(axis=1), -1)
+        return first, last
+
+    @staticmethod
+    def points_within_polygon(lons, lats, polygon_lons, polygon_lats):
+        """Boolean mask of the points inside the polygon (even-odd rule;
+        the reference delegates to shapely)."""
+        ring = np.column_stack([np.asarray(polygon_lons),
+                                np.asarray(polygon_lats)])
+        return points_in_ring(lons, lats, ring)
 
     def prepare_run(self, dt, K, export_variables=None, total_steps=None):
         """Finalise the environment, build the initial device state and the
@@ -630,9 +844,18 @@ class OpenDriftSimulation(Timeable, Configurable):
             truncate_depth=self.get_config(
                 "drift:truncate_ocean_model_below_m", default=None),
             pair_hint="xy")
+        # seafloor seeding: z = -depth at the seed positions (reference
+        # basemodel/__init__.py:1168-1210)
         if self.get_config("seed:seafloor", default=False):
-            raise NotImplementedError(
-                "seed:seafloor is not ported yet (ROADMAP A.6)")
+            dev0 = self.env.build_device_states(
+                self.start_time, self.start_time + timedelta(seconds=dt))
+            envs0, _ = self.env.get_environment(
+                dev0, ["sea_floor_depth_below_sea_level"], np.float32(0.0),
+                *(torch.as_tensor(state_np[k], device=self.device)
+                  for k in ("lon", "lat", "z")))
+            depth0 = envs0["sea_floor_depth_below_sea_level"].cpu().numpy()
+            state_np["z"] = (-depth0 + 0.01).astype(np.float32)
+            state_np["prev_z"] = state_np["z"].copy()
         self.export_variables = export_variables
         advance, final_snap = self._make_advance(K, dt)
         state = element_state_from_numpy(state_np, self.device)
@@ -675,20 +898,45 @@ class OpenDriftSimulation(Timeable, Configurable):
 
     def _auto_landmask_fallback(self):
         """Resolve land_binary_mask when no reader serves it and no
-        fallback is set.  The bundled-coastline auto landmask is not ported
-        yet, so the port asks for an explicit choice instead."""
+        fallback is set.  The reference adds the GSHHG global landmask,
+        which always covers (reference reader_global_landmask.py:
+        201-260); the bundled raster is regional, so it is added only when
+        it covers every seed, and otherwise the run raises while a
+        coastline action is on: an all-ocean default would quietly turn
+        'stranding' into a no-op."""
         if "land_binary_mask" not in self.required_variables:
             return
         if self.env.priority_list.get("land_binary_mask") or \
                 self.env.fallback_values.get("land_binary_mask") is not None:
             return
+        if self.get_config("general:use_auto_landmask"):
+            reason = "auto landmask failed"
+            try:
+                lm = GlobalLandmask()
+                lon = np.concatenate([s["lon"] for s in self._seedings])
+                lat = np.concatenate([s["lat"] for s in self._seedings])
+                if bool(np.all(lm.covers_positions(lon, lat))):
+                    self.env.add_reader(lm)
+                    self.env._plan.append((lm, ["land_binary_mask"]))
+                    return
+                reason = ("the bundled coastline raster does not cover "
+                          "the seeding area")
+            except (OSError, ValueError, NotImplementedError) as e:
+                reason = f"no landmask data available ({e})"
+        else:
+            reason = "general:use_auto_landmask is False"
         if self.get_config("general:coastline_action") == "none":
             self.env.fallback_values["land_binary_mask"] = 0.0
             return
-        raise NotImplementedError(
-            "the automatic coastline landmask is not ported yet (ROADMAP "
-            "A.7); set environment:fallback:land_binary_mask=0 to treat the "
-            "domain as all ocean, or general:coastline_action='none'")
+        raise ValueError(
+            f"general:coastline_action="
+            f"'{self.get_config('general:coastline_action')}' needs a "
+            f"landmask, but {reason}. Either add a gridded ocean reader "
+            "whose grid provides a land mask, supply a coastline "
+            "shapefile (OPENDRIFT_LANDMASK_SHP), set "
+            "environment:fallback:land_binary_mask=0 to explicitly "
+            "treat the domain as all ocean, or set "
+            "general:coastline_action='none'")
 
     def closest_ocean_points(self, lon, lat):
         """Move points on land to the nearest ocean cell of a gridded
@@ -791,6 +1039,10 @@ class OpenDriftSimulation(Timeable, Configurable):
         status_outside = self.status_code("outside")
         status_missing = self.status_code("missing_data")
         status_seafloor = self.status_code("seafloor")
+        # readers keyed on element IDs (per-element environment seeding)
+        # are given the IDs through the ``member`` channel
+        has_ids = any(getattr(r, "needs_ids", False)
+                      for r in env.readers.values())
         bounds = [(self.get_config(f"drift:deactivate_{side}_of"), name, op)
                   for side, name, op in (("west", "lon", torch.lt),
                                          ("east", "lon", torch.gt),
@@ -898,7 +1150,8 @@ class OpenDriftSimulation(Timeable, Configurable):
             block_ctx = fetch_block(d, dev_states)
             envs, missing = env.get_environment(
                 dev_states, env_vars, t_rel, d["lon"], d["lat"], d["z"],
-                key=key if env.uncertainty else None, block_ctx=block_ctx)
+                key=key if env.uncertainty else None,
+                member=d["ID"] if has_ids else None, block_ctx=block_ctx)
             if no_fallback_vars:
                 miss_any = torch.zeros_like(active)
                 for v in no_fallback_vars:
@@ -1046,10 +1299,73 @@ class OpenDriftSimulation(Timeable, Configurable):
             "status_categories": " ".join(self.status_categories),
         }
         attrs.update(self._config_to_attributes())
+        attrs.update(getattr(self, "_extra_metadata", {}))
         return TrajectoryDataset(variables, coords, attrs)
 
     def num_elements_total(self):
         return self.num_elements_scheduled_total
+
+    def num_elements_scheduled(self):
+        return self.num_elements_scheduled_total
+
+    def num_elements_activated(self):
+        """Elements released by the end of the run, as the JAX package
+        counts them: valid at the last output plus deactivated there."""
+        if self.result is not None:
+            status = self.result["status"].values
+            return int((~np.isnan(
+                np.asarray(self.result["lon"].values[:, -1]))).sum()
+                + (status[:, -1] > 0).sum())
+        return 0
+
+    def num_elements_active(self):
+        if self.result is not None:
+            return int((self.result["status"].values[:, -1]
+                        == ACTIVE).sum())
+        return 0
+
+    def num_elements_deactivated(self):
+        if self.result is not None:
+            return int((self.result["status"].values[:, -1]
+                        > ACTIVE).sum())
+        return 0
+
+    def get_time_array(self):
+        """Output times of the last run and their offsets from the first
+        (deprecated upstream; use ``result.time``; reference
+        basemodel/__init__.py:4506)."""
+        times = np.asarray(self.result.coords["time"]) \
+            .astype("datetime64[s]").tolist()
+        return times, [t - times[0] for t in times]
+
+    def get_property(self, propname):
+        """(values.T, status.T) of a result variable, as the reference's
+        deprecated accessor returns them (basemodel:4603)."""
+        logger.warning("get_property is deprecated; use o.result[...]")
+        return (np.asarray(self.result[propname].values).T,
+                np.asarray(self.result["status"].values).T)
+
+    def get_trajectory_lengths(self):
+        """(total length, step lengths, step speeds) along each trajectory
+        in metres and m/s; steps faster than 100 m/s count 0 (reference
+        basemodel/__init__.py:4614-4634)."""
+        lon = np.asarray(self.result["lon"].values)   # (N, T)
+        lat = np.asarray(self.result["lat"].values)
+        _, _, dist = geodesic_inverse(np, lat[:, :-1], lon[:, :-1],
+                                      lat[:, 1:], lon[:, 1:])
+        dist = np.nan_to_num(dist, nan=0.0)
+        speeds = dist / self.time_step_output.total_seconds()
+        bad = speeds > 100
+        dist[bad] = 0
+        speeds[bad] = 0
+        return np.cumsum(dist, axis=1)[:, -1], dist, speeds
+
+    def store_message(self, msg):
+        self.messages.append(msg)
+        logger.warning(msg)
+
+    def get_messages(self):
+        return "\n".join(self.messages)
 
     def __repr__(self):
         return (f"Model: {type(self).__name__} (mode: {self.mode.name}, "
@@ -1099,8 +1415,13 @@ class StepContext(PhysicsContext):
 
     def get_environment(self, varnames, t_rel, lon, lat, z):
         key = self.next_key() if self.sim.env.uncertainty else None
+        member = None
+        if any(getattr(r, "needs_ids", False)
+               for r in self.sim.env.readers.values()):
+            member = self.state.data["ID"]
         envs, _ = self.sim.env.get_environment(
-            self.dev_states, varnames, t_rel, lon, lat, z, key=key)
+            self.dev_states, varnames, t_rel, lon, lat, z, key=key,
+            member=member)
         return envs
 
     def update_positions(self, x_vel, y_vel):
@@ -1135,6 +1456,22 @@ class StepContext(PhysicsContext):
         self.state = self.state.replace(
             lon=torch.where(mask, lon2, d["lon"]),
             lat=torch.where(mask, lat2, d["lat"]))
+
+    def update_z(self, dz=None, new_z=None):
+        """Move active, moving elements vertically by ``dz`` or to
+        ``new_z``."""
+        d = self.state.data
+        mask = self.active & (d["moving"] > 0)
+        if new_z is None:
+            new_z = d["z"] + dz
+        self.state = self.state.replace(z=torch.where(mask, new_z, d["z"]))
+
+    def deactivate_elements(self, mask, reason):
+        """Give the active elements of ``mask`` the status of ``reason``."""
+        code = self.sim.status_code(reason)
+        d = self.state.data
+        self.state = self.state.replace(
+            status=torch.where(self.active & mask, code, d["status"]))
 
     def set_var(self, name, values, mask=None):
         d = self.state.data

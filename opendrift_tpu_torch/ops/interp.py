@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .gather import gather_rows_plain
+from ..utils import native
 
 # The JAX package's thresholds, kept so that both packages build the same
 # tables from the same forcing: rows from which a 4-byte table counts as
@@ -504,16 +505,24 @@ class PackedSampler:
 
 # ------------------------------------------------------------ host prep --
 
+def fill_route():
+    """Which NaN fill the host takes: 'native' (the chamfer transform of
+    ``csrc/fieldpipe.cpp``, built on first use, as in the JAX package) or
+    'scipy' (the fallback where g++ failed; logged at WARNING)."""
+    return "native" if native.get_lib() is not None else "scipy"
+
+
 def fill_invalid(field):
     """Replace NaNs with the nearest valid value (2D horizontal fill, per
     slice), host side at frame load.  Returns (filled, any_valid).
 
-    The JAX package uses its native library when it is built and this
-    same scipy Euclidean-distance fill otherwise; the port keeps the
-    scipy path (equal where the nearest valid cell is unique)."""
+    As the JAX package's: the native chamfer fill (a slice with no valid
+    value becomes 0), and only where it cannot be built (:func:`fill_route`)
+    scipy's Euclidean fill (which leaves such a slice NaN and picks another
+    nearest cell where distances differ little)."""
     out = np.ascontiguousarray(field, dtype=np.float32).copy()
     any_valid = bool(np.isfinite(out).any())
-    if not np.isfinite(out).all():
+    if not np.isfinite(out).all() and not native.fill_nearest(out):
         from scipy.ndimage import distance_transform_edt
         flat = out.reshape(-1, *out.shape[-2:])
         for i in range(flat.shape[0]):
@@ -532,6 +541,8 @@ def fill_towards_seafloor(block):
     interpolation/structured.py:50-71); ``block`` is (Z, Y, X) with z
     index 0 at the surface."""
     out = np.ascontiguousarray(block, dtype=np.float32).copy()
+    if native.fill_seafloor(out):
+        return out
     for k in range(1, out.shape[0]):
         nan = ~np.isfinite(out[k])
         out[k][nan] = out[k - 1][nan]

@@ -102,21 +102,47 @@ def test_take_rows_clamps():
     np.testing.assert_array_equal(rows.numpy(), want)
 
 
-def test_host_fills_bit_equal(monkeypatch):
-    # the JAX package fills through its native library when it is built;
-    # its scipy path (the one the port keeps) is the reference here, as
-    # the two may break ties between equidistant cells differently
-    from opendrift_tpu.utils import native
-    monkeypatch.setattr(native, "fill_nearest", lambda out: False)
-    monkeypatch.setattr(native, "fill_seafloor", lambda out: False)
+def _coast_field():
+    """(5, 60, 70): a wavy coast with an island on two levels, 50% random
+    NaNs on a third, one all-NaN level and one with no NaN at all."""
     r = np.random.default_rng(2)
-    field = r.standard_normal((4, 11, 13)).astype(np.float32)
-    field[r.random(field.shape) < 0.3] = np.nan
-    field[2] = np.nan                       # an all-missing level
+    field = r.standard_normal((5, 60, 70)).astype(np.float32)
+    Y, X = np.mgrid[0:60, 0:70]
+    land = (X > 45 + 6 * np.sin(Y / 5.0)) \
+        | ((X - 20) ** 2 + (Y - 30) ** 2 < 40)
+    field[0][land] = np.nan
+    field[1][land | (Y < 3)] = np.nan
+    field[2][r.random((60, 70)) < 0.5] = np.nan
+    field[3] = np.nan
+    return field
+
+
+@pytest.mark.parametrize("route", ["native", "no_compiler"])
+def test_host_fills_bit_equal(monkeypatch, route):
+    """Both packages' host fills, bit for bit: through the native chamfer
+    transform, the JAX package's default (an all-NaN level comes out 0),
+    and both forced down their no-compiler fallbacks (scipy's Euclidean
+    fill, which leaves an all-NaN level NaN)."""
+    from opendrift_tpu.utils import native as jnative
+    from opendrift_tpu_torch.utils import native as tnative
+    if route == "no_compiler":
+        for mod in (jnative, tnative):
+            monkeypatch.setattr(mod, "get_lib", lambda: None)
+        assert tinterp.fill_route() == "scipy"
+    else:
+        assert jnative.get_lib() is not None
+        assert tinterp.fill_route() == "native"
+    field = _coast_field()
     want_fill, want_any = jinterp.fill_invalid(field.copy())
     got_fill, got_any = tinterp.fill_invalid(field.copy())
     assert got_any == want_any
     np.testing.assert_array_equal(got_fill, want_fill)
+    assert np.isfinite(got_fill[[0, 1, 2, 4]]).all()
+    if route == "native":
+        assert (got_fill[3] == 0.0).all()
+    else:
+        assert np.isnan(got_fill[3]).all()
+    np.testing.assert_array_equal(got_fill[4], field[4])
     np.testing.assert_array_equal(tinterp.fill_towards_seafloor(field.copy()),
                                   jinterp.fill_towards_seafloor(field.copy()))
 

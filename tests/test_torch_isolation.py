@@ -59,6 +59,41 @@ def test_the_sampler_slice_is_covered():
     assert os.path.exists(os.path.join(PORT, "csrc", "row_gather.cu"))
 
 
+def test_the_landmask_slice_is_covered_and_keeps_its_own_copies():
+    """The landmask slice's modules are among the sources checked above,
+    and the port carries its own byte copies of the coastline raster and
+    of the native field pipeline's source."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("fields/landmask.py", "fields/shape.py",
+                 "utils/shapefile.py", "utils/native.py",
+                 "export/io_parquet.py"):
+        assert name in have, name
+    for port_copy, original in (
+            ("data/coastline_mask.npz", "opendrift_tpu/data/coastline_mask.npz"),
+            ("csrc/fieldpipe.cpp", "native/fieldpipe.cpp")):
+        with open(os.path.join(PORT, port_copy), "rb") as a, \
+                open(os.path.join(REPO, original), "rb") as b:
+            assert a.read() == b.read(), port_copy
+
+
+def test_no_module_imports_matplotlib_at_module_level():
+    """matplotlib is not on the card machine: a port module imports it
+    only inside the function that needs it (``seed_letters``)."""
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            if any(n.split(".")[0] == "matplotlib" for n in names):
+                bad.append(os.path.relpath(path, REPO))
+    assert not bad
+
+
 def test_gather_tool_runs_with_jax_unimportable():
     """``python -m opendrift_tpu_torch.tools.gather_ab`` on the CPU, in a
     process where JAX and the JAX package cannot be imported."""

@@ -155,6 +155,43 @@ def test_matches_reference_golden(name):
     assert stats["final_mean_m"] < final_tol, stats
 
 
+def test_mixing_sundby_stat_golden():
+    """The reference OpenDrift's Visser walk with the Sundby1983
+    diffusivity (3,000 elements, constant fallbacks, Euler), run as
+    tools/parity_compare.py runs it, at the statistical bounds of
+    tests/test_reference_stat_parity.py."""
+    from opendrift_tpu_torch.models import OceanDrift
+    golden, cfg = parity_compare.load_golden("mixing_sundby_stat")
+    o = OceanDrift(loglevel=40, device="cpu")
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("environment:fallback:x_wind", cfg["wind_u"])
+    o.set_config("environment:fallback:y_wind", 0.0)
+    o.set_config("environment:fallback:sea_floor_depth_below_sea_level",
+                 cfg["seafloor"])
+    o.set_config("environment:fallback:ocean_mixed_layer_thickness",
+                 cfg["mld"])
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "windspeed_Sundby1983")
+    o.set_config("vertical_mixing:timestep", cfg["dt_mix"])
+    n = cfg["n"]
+    o.seed_elements(lon=np.full(n, 4.0), lat=np.full(n, 60.0),
+                    z=np.full(n, cfg["seed_z"]), time=datetime(2021, 6, 1),
+                    wind_drift_factor=np.zeros(n),
+                    terminal_velocity=np.zeros(n))
+    o.run(duration=timedelta(seconds=cfg["duration_s"]),
+          time_step=cfg["time_step"])
+    z_r = np.asarray(golden["z"], np.float64)[:, -1]
+    z_o = np.asarray(o.result["z"].values, np.float64)[:, -1]
+    assert z_o.shape == z_r.shape == (3000,)
+    assert abs(z_o.mean() - z_r.mean()) < 1.5, (z_o.mean(), z_r.mean())
+    assert abs(z_o.std() - z_r.std()) < 1.0, (z_o.std(), z_r.std())
+    for q in (5, 25, 50, 75, 95):
+        assert abs(np.percentile(z_o, q) - np.percentile(z_r, q)) < 2.5, q
+    f_r = (z_r < -cfg["mld"]).mean()
+    f_o = (z_o < -cfg["mld"]).mean()
+    assert abs(f_o - f_r) < 0.06, (f_o, f_r)
+
+
 def _default_diffusivity_run(pkg):
     if pkg == "jax":
         from opendrift_tpu.models import OceanDrift
