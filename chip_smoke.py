@@ -9,7 +9,8 @@ printing its own line:
 
 1. device: the card's name and power limit, and the build of the CUDA
    kernels (one ``nvcc`` per source of ``opendrift_tpu_torch/csrc``, both
-   started together);
+   started together); then the forcing files of the file paths (4a),
+   written into a temporary directory removed at the end;
 2. kernels: each hand-written kernel (the windspeed, profile and oil
    mixing kernels, and the two row-gather kernels) against its plain
    PyTorch version on the card, at the main path's shapes (2M elements,
@@ -51,6 +52,22 @@ printing its own line:
    own sample at any output, no NaN where an element is valid; the fill's
    seconds on one window's frames, native against scipy, and the mask
    samples a step are printed;
+4a. file paths: default ``OceanDrift(device="cuda")`` runs from NetCDF-3
+   files the script writes itself (``opendrift_tpu_torch/tools/
+   synthetic_nc.py``), 2M elements seeded as in the coast path, RK4, three
+   intervals after one untimed: ``netcdf_path`` on a NorKyst800-like
+   ocean (polar stereographic, 260 x 300 cells of 800 m, 16 z-levels,
+   int16-packed with fills on land: the reader's own landmask) and an
+   AROME-like wind (Lambert conformal, grid-relative, so the convergence
+   rotation runs), Visser mixing through the windspeed kernel; and
+   ``roms_path`` on a Nordic-4km-like ROMS file (a 200 x 160 curvilinear
+   C-grid, 32 sigma levels), 'environment' mixing on its AKs profiles
+   through the profile kernel.  Checked: the int16 decode's route is
+   'native', the path's kernel once a step and no other, no NaN where an
+   element is valid; printed: reader build and run seconds, the steps-alone
+   rate and reader share, the stranded share, the seconds of a window's
+   decode (native against numpy) and fill, and the milliseconds of one
+   grid-index call (projection or index map) with the calls a step;
 5. oil path: ``OpenOil(device="cuda")`` on the same ocean extended with
    waves, temperature, salinity and a coast (a reader-served landmask),
    2M elements of GENERIC MEDIUM CRUDE seeded at the surface, RK4,
@@ -80,9 +97,11 @@ printing its own line:
    row indices (the run that counts the gather kernels' launches);
 9. generic loop: one interval of OpenOil with ``TSprofiles`` and one of
    OceanDrift with ``use_pallas=False``;
-10. card against CPU: the same small OceanDrift, OpenOil, sampler-path and
-   coast-path configurations on ``cuda`` and on ``cpu`` from one seed,
-   held to the slice tolerance (the coast path with every status equal).
+10. card against CPU: the same small OceanDrift, OpenOil, sampler-path,
+   coast-path and file-path configurations (the files on coarser grids;
+   ROMS with ``sampling="native"`` and ``"regrid"``) on ``cuda`` and on
+   ``cpu`` from one seed, held to the slice tolerance (the coast and file
+   paths with every status equal).
 
 Then the seconds of each phase, one JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -90,8 +109,11 @@ check raises, so the script exits non-zero.
 """
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from datetime import datetime, timedelta
 
@@ -1385,6 +1407,267 @@ def coast_card_against_cpu(n=4096, intervals=2):
     return errs
 
 
+# ------------------------------------------ the NetCDF and ROMS paths -----
+
+# The files of these paths, written when the script starts (write_files):
+# a NorKyst800-like ocean (polar stereographic, 260 x 300 cells of 800 m
+# over Lofoten and Vestfjorden, the 16 NorKyst depths, int16-packed u, v,
+# temperature and salinity with fills on the raster's land cells), an
+# AROME-like wind (Lambert conformal, 160 x 140 cells of 2.5 km) and a
+# Nordic-4km-like ROMS file (a 200 x 160 curvilinear C-grid, 32 sigma
+# levels, AKs on the w levels).  Hourly frames for NorKyst and AROME and
+# 3-hourly for ROMS, 0 to 8 h and 0 to 12 h: the timed run spans 7.5 h.
+NORKYST_SHAPE = dict(nx=260, ny=300, nz=16, nt=9)
+AROME_SHAPE = dict(nx=160, ny=140, nt=9)
+ROMS_SHAPE = dict(nxi=200, neta=160, ns=32, nt=5)
+
+
+def write_files(directory, small=False):
+    """The three forcing files, at the products' widths or (``small``, for
+    the card-against-CPU phases) over the same areas on coarser grids;
+    returns {name: path}."""
+    from opendrift_tpu_torch.tools import synthetic_nc as nc
+    import os
+    norkyst, arome, roms = NORKYST_SHAPE, AROME_SHAPE, ROMS_SHAPE
+    if small:
+        norkyst = dict(nx=60, ny=70, nz=8, nt=9, dx=3000.0)
+        arome = dict(nx=40, ny=40, nt=9, dx=8000.0)
+        roms = dict(nxi=50, neta=40, ns=8, nt=5, dx=16000.0)
+    return {"norkyst": nc.write_norkyst(os.path.join(directory, "norkyst.nc"),
+                                        **norkyst),
+            "arome": nc.write_arome(os.path.join(directory, "arome.nc"),
+                                    **arome),
+            "roms": nc.write_roms(os.path.join(directory, "roms.nc"), **roms)}
+
+
+def netcdf_simulation(device, n, files, seed=0):
+    """A default OceanDrift run of ``n`` elements on the NorKyst-like ocean
+    and the AROME-like wind, read from the files as a user would, with no
+    landmask setting (the ocean file's fill cells give its landmask): RK4,
+    Visser mixing with windspeed_Large1994 on the file's wind, horizontal
+    diffusivity 10 m2/s, dt = 900 s with 60 s substeps, seeded by
+    ``seed_from_wkt`` west of the Lofoten wall over the top 20 m.  Returns
+    (simulation, seconds to build the readers)."""
+    from opendrift_tpu_torch.models.oceandrift import OceanDrift
+    from opendrift_tpu_torch.fields import NetCDFReader
+    t = time.perf_counter()
+    ocean = NetCDFReader(files["norkyst"], name="norkyst")
+    wind = NetCDFReader(files["arome"], name="arome")
+    build_s = time.perf_counter() - t
+    o = OceanDrift(loglevel=40, device=device, seed=seed)
+    o.add_reader([ocean, wind])
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "windspeed_Large1994")
+    o.set_config("vertical_mixing:timestep", 60.0)
+    o.set_config("drift:horizontal_diffusivity", 10.0)
+    r = np.random.default_rng(seed + 1)
+    o.seed_from_wkt(COAST_WKT, time=ocean.times[0], number=n,
+                    z=-r.uniform(0.0, 20.0, n))
+    return o, build_s
+
+
+def roms_simulation(device, n, files, sampling="native", seed=0):
+    """A default OceanDrift run of ``n`` elements on the Nordic-like ROMS
+    file (its mask_rho the landmask): RK4, 'environment' mixing on the
+    file's AKs profiles, horizontal diffusivity 10 m2/s, dt = 900 s with
+    60 s substeps, seeded as :func:`netcdf_simulation`.  Returns
+    (simulation, seconds to build the reader)."""
+    from opendrift_tpu_torch.models.oceandrift import OceanDrift
+    from opendrift_tpu_torch.fields import ROMSReader
+    t = time.perf_counter()
+    reader = ROMSReader(files["roms"], sampling=sampling, name="nordic")
+    build_s = time.perf_counter() - t
+    o = OceanDrift(loglevel=40, device=device, seed=seed)
+    o.add_reader(reader)
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "environment")
+    o.set_config("vertical_mixing:timestep", 60.0)
+    o.set_config("drift:horizontal_diffusivity", 10.0)
+    r = np.random.default_rng(seed + 1)
+    o.seed_from_wkt(COAST_WKT, time=reader.times[0], number=n,
+                    z=-r.uniform(0.0, 20.0, n))
+    return o, build_s
+
+
+def decode_seconds(reader):
+    """Seconds of the CF decode (``cf_unpack``) of one window's int16
+    frames of ``reader``'s packed variables, through the native
+    ``decode_i16`` and through the numpy fallback, in turns (native,
+    numpy, numpy, native)."""
+    from opendrift_tpu_torch.utils import native, ncio
+    tidx = reader._frame_indices(None, None)
+    raw = []
+    for v in reader._group3 + reader._group2:
+        vname = reader._sources[v][0]
+        for ti in tidx:
+            var = reader._files[reader._file_of_frame[ti]].variables[vname]
+            if var.dtype == np.int16:
+                raw.append((var, var[reader._index_in_file[ti]]))
+    real = native.get_lib
+    out = {"native": [], "numpy": []}
+    for route in ("native", "numpy", "numpy", "native"):
+        if route == "numpy":
+            native.get_lib = lambda: None
+        try:
+            t = time.perf_counter()
+            for var, a in raw:
+                ncio.cf_unpack(var, a)
+            out[route].append(time.perf_counter() - t)
+        finally:
+            native.get_lib = real
+    return {"frames": len(raw), "values": int(sum(a.size for _, a in raw)),
+            "native_s": out["native"], "numpy_s": out["numpy"]}
+
+
+def grid_index_ms(reader, o):
+    """Milliseconds of one ``_grid_indices`` call (the projection or the
+    curvilinear index map, then the division into cells) at the run's
+    element positions on the card, by CUDA events (median)."""
+    import torch
+    lon, lat = o.state.data["lon"], o.state.data["lat"]
+    reader._grid_indices(lon, lat)
+    times = []
+    for _ in range(NTIMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        reader._grid_indices(lon, lat)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def file_path(name, simulation, kernel, files, n=2_000_000, intervals=3,
+              fill=True):
+    """A file-forcing path at full width: one untimed interval, then the
+    timed run.  ``kernel`` is the mixing kernel the path must launch once a
+    step (and no other); ``fill``: time the host NaN fill of a window too.
+    Returns (its launches, the run's numbers)."""
+    import torch
+    from opendrift_tpu_torch.fields.grid import StructuredGridReader
+    from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.utils import native
+    route = native.decode_route()
+    log(f"{name}_decode_route", route=route)
+    if route != "native":
+        raise AssertionError(f"the int16 decode took the {route!r} route")
+    parts = {}
+    t = time.perf_counter()
+    o, _ = simulation("cuda", n, files)
+    run_sampler(o, 1)
+    first = n * 10 / (o.timers["main loop"]
+                      - o.timers.get("main loop:readers", 0.0))
+    del o
+    parts["untimed_s"] = time.perf_counter() - t
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    t = time.perf_counter()
+    o, build_s = simulation("cuda", n, files)
+    parts["setup_s"] = time.perf_counter() - t
+    for k in kernels:
+        k.launches = 0
+    calls = []
+    real = StructuredGridReader._grid_indices
+
+    def counted(self, *args, **kw):
+        calls.append(type(self).__name__)
+        return real(self, *args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    StructuredGridReader._grid_indices = counted
+    try:
+        secs = run_sampler(o, intervals)
+    finally:
+        StructuredGridReader._grid_indices = real
+    launches = kernel.launches
+    steps = 10 * intervals
+    assert launches == steps, f"{launches} launches of {kernel.__name__} " \
+        f"in {steps} steps"
+    for k in kernels:
+        if k is not kernel:
+            assert k.launches == 0, f"{name} launched {k.__name__}"
+    checks = check_sampler_result(o, n, intervals + 1)
+    stats = run_stats(o, n, steps, secs)
+    stats["particle_steps_per_s_steps_only_untimed_interval"] = first
+    stats["reader_build_s"] = build_s
+    readers = [r for r, _ in o.env._plan]
+    step_ms = (stats["main_loop_s"] - stats["readers_s"]) / steps * 1e3
+    index = {r.name: {"ms": grid_index_ms(r, o),
+                      "calls_per_step": calls.count(type(r).__name__)
+                      / len(readers) / (steps + 1)}
+             for r in readers if isinstance(r, StructuredGridReader)}
+    t = time.perf_counter()
+    host = {"decode": decode_seconds(readers[0])}
+    if fill:
+        host["fill"] = fill_seconds(readers[0])
+    parts["host_timing_s"] = time.perf_counter() - t
+    log(name, decode_route=route, launches=launches,
+        tiers={r.name: r._sampler.pair_mode for r in readers},
+        grid_index=index, step_ms=step_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_parts=parts, **host, **checks, **stats)
+    profile_interval(o, phase=f"{name}_profile")
+    return launches, stats
+
+
+def file_card_against_cpu(name, simulation, files, n=4096, intervals=2,
+                          **kw):
+    """A file path's configuration, small, on the card and on the CPU from
+    one seed: every status equal at every output, lon/lat/z within the
+    slice tolerance."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        o, _ = simulation(device, n, files, **kw)
+        o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+              time_step_output=9000)
+        out[device] = o.result
+    status = [np.asarray(out[d]["status"].values) for d in ("cuda", "cpu")]
+    if not np.array_equal(*status):
+        raise AssertionError(f"{name}: card and CPU disagree on "
+                             f"{int((status[0] != status[1]).sum())} "
+                             f"statuses")
+    errs = {}
+    for var in ("lon", "lat", "z"):
+        err, ok = agree(out["cuda"][var].values, out["cpu"][var].values,
+                        SLICE_MEDIAN_ATOL[var], SLICE_OUTLIER_ATOL[var],
+                        SLICE_OUTLIER_SHARE)
+        errs[var] = err
+        if not ok:
+            raise AssertionError(f"{name}: card and CPU disagree on {var}: "
+                                 f"{err}")
+    stranded = float((status[1][:, -1]
+                      == o.status_categories.index("stranded")).mean())
+    log(f"{name}_card_vs_cpu", elements=n, intervals=intervals,
+        stranded_share=stranded, max_abs_err=errs, **kw)
+    return errs
+
+
+def netcdf_path(files):
+    from opendrift_tpu_torch.ops import mixing
+    return file_path("netcdf_path", netcdf_simulation, mixing.visser_mixing,
+                     files)
+
+
+def roms_path(files):
+    from opendrift_tpu_torch.ops import mixing
+    # ROMS frames arrive coast-filled by grey dilation (fields/roms.py), so
+    # the host NaN fill has nothing left to do there and is not timed
+    return file_path("roms_path", roms_simulation,
+                     mixing.visser_mixing_profile, files, fill=False)
+
+
+def netcdf_card_against_cpu(files):
+    return file_card_against_cpu("netcdf", netcdf_simulation, files)
+
+
+def roms_card_against_cpu(files):
+    for sampling in ("native", "regrid"):
+        file_card_against_cpu("roms", roms_simulation, files,
+                              sampling=sampling)
+
+
 # -------------------------------------------- tiers and storages ----------
 
 def final_frame(o):
@@ -1661,6 +1944,17 @@ def main():
         gather_ptxas=ptxas(gather.build_log))
 
     seconds = {"build": time.perf_counter() - t}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(kind, power, t, seconds, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_phases(kind, power, t, seconds, workdir):
+    """Every phase after the build, in order; the forcing files go into
+    ``workdir``."""
+    import torch
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -1669,6 +1963,12 @@ def main():
         finally:
             seconds[name] = time.perf_counter() - t
 
+    files = timed("write_files", write_files, workdir)
+    os.mkdir(os.path.join(workdir, "small"))
+    small_files = write_files(os.path.join(workdir, "small"), small=True)
+    log("files", **{k: {"path": os.path.basename(v),
+                        "mb": os.path.getsize(v) / 1e6}
+                    for k, v in files.items()})
     rows = timed("check_kernels", check_kernels, "cuda")
     rows["visser_mixing_oil"] = timed("check_oil_kernel", check_oil_kernel,
                                       "cuda")
@@ -1679,12 +1979,16 @@ def main():
     rows.update(timed("check_gather_kernels", check_gather_kernels, "cuda"))
     launches, stats = timed("main_path", main_path)
     coast_launches, coast_stats = timed("coast_path", coast_path)
+    netcdf_launches, netcdf_stats = timed("netcdf_path", netcdf_path, files)
+    roms_launches, roms_stats = timed("roms_path", roms_path, files)
     launches["visser_mixing_oil"], oil_stats = timed("oil_path", oil_path)
     for path, name, count, st in (
             ("main", "visser_mixing", launches["visser_mixing"], stats),
             ("oil", "visser_mixing_oil", launches["visser_mixing_oil"],
              oil_stats),
-            ("coast", "visser_mixing", coast_launches, coast_stats)):
+            ("coast", "visser_mixing", coast_launches, coast_stats),
+            ("netcdf", "visser_mixing", netcdf_launches, netcdf_stats),
+            ("roms", "visser_mixing_profile", roms_launches, roms_stats)):
         mixing_s = rows[name]["ms"] * 1e-3 * count
         log("mixing_share", path=path, kernel=name, mixing_s=mixing_s,
             share_of_steps=mixing_s / (st["main_loop_s"] - st["readers_s"]))
@@ -1704,6 +2008,16 @@ def main():
         if count == 0:
             raise AssertionError(f"the main path never launched {name}")
         rows[name]["launches"] = count
+    # every path that launches each kernel, with its count in that path
+    rows["visser_mixing"]["paths"] = {
+        "main": launches["visser_mixing"], "coast": coast_launches,
+        "netcdf": netcdf_launches}
+    rows["visser_mixing_profile"]["paths"] = {
+        "sampler": launches["visser_mixing_profile"], "roms": roms_launches}
+    rows["visser_mixing_oil"]["paths"] = {
+        "oil": launches["visser_mixing_oil"]}
+    for name in ("gather_rows_async", "gather_rows_smem"):
+        rows[name]["paths"] = {"gather_ab": launches[name]}
     for name, fn in (("prefetch_ab", prefetch_ab),
                      ("tiers_and_storages", tiers_and_storages),
                      ("generic_loop", generic_loop_phase),
@@ -1712,6 +2026,8 @@ def main():
                      ("sampler_card_against_cpu", sampler_card_against_cpu),
                      ("coast_card_against_cpu", coast_card_against_cpu)):
         timed(name, fn)
+    timed("netcdf_card_against_cpu", netcdf_card_against_cpu, small_files)
+    timed("roms_card_against_cpu", roms_card_against_cpu, small_files)
     log("phase_seconds", total=time.perf_counter() - t, **seconds)
 
     kernels = [{k: v for k, v in row.items()

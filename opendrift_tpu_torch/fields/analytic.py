@@ -2,12 +2,13 @@
 
 Port of the part of ``opendrift_tpu/fields/analytic.py`` the port runs:
 ``ConstantReader`` (the ``environment:constant:*`` configs),
-``DoubleGyre`` (the trajectory golden) and ``PerElementReader``
+``DoubleGyre`` (the trajectory golden), ``OscillatingReader`` (the
+``oscillating:`` scheme of ``fields/factory.py``) and ``PerElementReader``
 (``seed_elements(..., environment={...})``).  Each sampler evaluates its field
 at the given positions on their device; the step time ``t`` is a host
 float32 scalar, so time-only terms are computed on the host in float32
 exactly as the JAX package computes them on the device.  The other
-analytic readers come with ROADMAP A.3's remainder.
+analytic readers raise ``NotImplementedError`` (ROADMAP A.9b).
 """
 
 import math
@@ -78,6 +79,49 @@ class ConstantReader(ContinuousReader):
     def sample(self, dev_state, varnames, t, lon, lat, z):
         values = {v: torch.full_like(lon, self._values[v]) for v in varnames}
         return values, torch.ones_like(lon, dtype=torch.bool)
+
+
+class OscillatingReader(ContinuousReader):
+    """Sinusoidally time-varying scalar (reference reader_oscillating.py):
+    value = amplitude * sin(2 pi (t - zero_time) / period + phase)."""
+
+    def __init__(self, variable, amplitude, period_seconds=3600.0 * 24,
+                 zero_time=None, phase_degrees=0.0):
+        self.variables = [variable]
+        self._variable = variable
+        self.amplitude = float(amplitude)
+        self.period = float(period_seconds)
+        self.zero_time = zero_time if zero_time is not None else \
+            datetime(2000, 1, 1)
+        self.phase = math.radians(phase_degrees)
+        super().__init__()
+        self.name = f"oscillating_{variable}"
+
+    def sample(self, dev_state, varnames, t, lon, lat, z):
+        f32 = np.float32
+        t_abs = f32(t) + f32(self._t_offset(self.zero_time))
+        val = f32(self.amplitude) * np.sin(
+            f32(2.0 * math.pi) * t_abs / f32(self.period) + f32(self.phase))
+        return ({self._variable: torch.full_like(lon, float(val))},
+                torch.ones_like(lon, dtype=torch.bool))
+
+
+def _later(name):
+    """A reader of the JAX package's analytic set that is not ported yet."""
+    def init(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP A.9b, GRIB and the "
+            "remaining analytic readers)")
+    return type(name, (ContinuousReader,), {
+        "__init__": init, "__doc__": "Not ported yet (ROADMAP A.9b)."})
+
+
+ArtificialOceanEddy = _later("ArtificialOceanEddy")
+FailingReader = _later("FailingReader")
+CurrentFromTrack = _later("CurrentFromTrack")
+CurrentFromDrifter = _later("CurrentFromDrifter")
+TimeseriesReader = _later("TimeseriesReader")
+Constant2DReader = _later("Constant2DReader")
 
 
 class PerElementReader(ContinuousReader):

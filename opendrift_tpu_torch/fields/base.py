@@ -11,13 +11,20 @@ runtime job is to provide
   ``({var: float32 tensor}, covers: bool tensor)``.
 
 Priority chains, fallbacks and vector rotation are applied by the
-environment.  The reader algebra (``+``, ``*``, combine_gaussian) and the
-standalone diagnostics (plot, time series) come with ROADMAP A.9.
+environment.  The reader algebra (``+``, ``-``, ``*``, ``/``,
+``combine_gaussian``; ``fields/operators.py``) and the standalone
+diagnostics (``covers_positions``, ``get_timeseries_at_position``,
+``sample_at``) are the JAX package's; the diagnostics sample on the
+reader's device (``device=``, else the one the environment gave it, else
+``cuda``).  ``plot`` is not ported (ROADMAP A.13).
 """
+
+from numbers import Number
 
 import numpy as np
 import torch
 
+from ..interop import device_state_from_numpy, resolve_device
 from ..utils import crs as crslib
 from ..utils.xp import tnp
 
@@ -80,6 +87,7 @@ class BaseReader:
     ymin = None
     ymax = None
     always_valid = False
+    device = None
 
     def __init__(self):
         if self.name is None:
@@ -137,6 +145,24 @@ class BaseReader:
     def lonlat2xy(self, lon, lat):
         return self.crs.fwd(np, np.asarray(lon, float), np.asarray(lat, float))
 
+    def covers_positions(self, lon, lat):
+        """Host-side coverage check (seeding diagnostics)."""
+        x, y = self.lonlat2xy(lon, lat)
+        return np.asarray(self._covers_xy_host(x, y))
+
+    def _covers_xy_host(self, x, y):
+        ok = np.ones(np.shape(x), dtype=bool)
+        if self.xmin is not None:
+            # geographic grids: the file's longitude convention (0..360 or
+            # -180..180) before the range test
+            if getattr(self.crs, "is_latlon", False):
+                x = np.where(x > self.xmax, x - 360.0, x)
+                x = np.where(x < self.xmin, x + 360.0, x)
+            ok &= (x >= self.xmin) & (x <= self.xmax)
+        if self.ymin is not None:
+            ok &= (y >= self.ymin) & (y <= self.ymax)
+        return ok
+
     def prepare(self, **kwargs):
         """Hook called at run start (reference structured.py:149)."""
 
@@ -161,6 +187,79 @@ class BaseReader:
                 outs[v].append(vals[v])
         return {v: torch.stack(outs[v]) for v in varnames}, covers
 
+    def get_timeseries_at_position(self, lon, lat, variables=None,
+                                   start_time=None, end_time=None,
+                                   times=None, z=0.0, device=None):
+        """A time series of ``variables`` at one position, the standalone
+        reader diagnostic (reference readers/basereader/__init__.py:
+        387-431).  Returns ``{'time': [datetimes], var: np.ndarray[T]}``;
+        one window holds every time, sampled once a time on ``device``."""
+        if variables is None:
+            variables = list(self.variables)
+        variables = list(variables)
+        if times is None:
+            own = getattr(self, "times", None)
+            if own:
+                times = [t for t in own
+                         if (start_time is None or t >= start_time)
+                         and (end_time is None or t <= end_time)]
+            else:
+                t0 = start_time or self.start_time
+                t1 = end_time or self.end_time
+                if t0 is None or t1 is None:
+                    raise ValueError(
+                        "give explicit times for a reader without a "
+                        "time axis")
+                times = [t0 + i * (t1 - t0) / 19 for i in range(20)]
+        if not times:
+            raise ValueError("no times within the requested range")
+        device = resolve_device(device or self.device)
+        self.set_run_epoch(times[0])
+        span = (times[-1] - times[0]).total_seconds()
+        self.prepare(interval_seconds=span if span > 0 else None)
+        dev = device_state_from_numpy(
+            self.device_state(times[0], times[-1]), device)
+        pos = [torch.tensor([v], dtype=torch.float32, device=device)
+               for v in (lon, lat, z)]
+        fetch, derived = self.expand_derived(variables)
+        series = {v: [] for v in variables}
+        for t in times:
+            trel = np.float32((t - times[0]).total_seconds())
+            vals, _ = self.sample(dev, fetch, trel, *pos)
+            if derived:
+                vals = self.apply_derived(vals, derived)
+            for v in variables:
+                series[v].append(vals[v][0])
+        result = {"time": list(times)}
+        for v in variables:
+            result[v] = torch.stack(series[v]).cpu().numpy()
+        return result
+
+    def sample_at(self, lon, lat, time, variables=None, z=0.0, device=None):
+        """Sample ``variables`` at arbitrary positions and one time: numpy
+        in, numpy dict out, NaN outside coverage (the standalone analogue
+        of the reference's ``get_variables_interpolated``,
+        basereader/variables.py:860-918)."""
+        if variables is None:
+            variables = list(self.variables)
+        variables = list(variables)
+        lon = np.atleast_1d(np.asarray(lon, dtype=np.float32)).ravel()
+        lat = np.atleast_1d(np.asarray(lat, dtype=np.float32)).ravel()
+        zv = np.broadcast_to(np.asarray(z, dtype=np.float32),
+                             lon.shape).ravel()
+        device = resolve_device(device or self.device)
+        self.set_run_epoch(time)
+        self.prepare()
+        dev = device_state_from_numpy(self.device_state(time, time), device)
+        fetch, derived = self.expand_derived(variables)
+        pos = [torch.as_tensor(np.ascontiguousarray(a), device=device)
+               for a in (lon, lat, zv)]
+        vals, covers = self.sample(dev, fetch, np.float32(0.0), *pos)
+        if derived:
+            vals = self.apply_derived(vals, derived)
+        return {v: torch.where(covers, vals[v], float("nan")).cpu().numpy()
+                for v in variables}
+
     def set_run_epoch(self, epoch):
         """Record the run's t = 0 (a datetime)."""
         self._run_epoch = epoch
@@ -180,9 +279,63 @@ class BaseReader:
                     tnp, values[xv], values[yv], gamma)
         return values
 
+    # --------------------------------------------------- reader algebra
+    # (reference operators/ops.py:9-92: the Combine mixin on BaseReader)
+    def __add__(self, other):
+        from . import operators
+        if isinstance(other, Number):
+            return operators.ScaledReader(self, scale=1.0,
+                                          offset=float(other))
+        if isinstance(other, BaseReader):
+            return operators.combine_add(self, other)
+        return NotImplemented
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __mul__(self, other):
+        from . import operators
+        if isinstance(other, Number):
+            return operators.ScaledReader(self, scale=float(other))
+        return NotImplemented
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __truediv__(self, other):
+        if isinstance(other, Number):
+            return self.__mul__(1.0 / float(other))
+        return NotImplemented
+
+    def __sub__(self, other):
+        from . import operators
+        if isinstance(other, Number):
+            return operators.ScaledReader(self, scale=1.0,
+                                          offset=-float(other))
+        if isinstance(other, BaseReader):
+            return operators.combine_sub(self, other)
+        return NotImplemented
+
+    def combine_gaussian(self, measurement_reader, std):
+        """Blend a point observation into this background field with a
+        gaussian weight of width ``std`` metres centred on the measurement
+        reader's (lon, lat) (reference operators/ops.py
+        combine_gaussian)."""
+        from . import operators
+        return operators.GaussianBlendReader(
+            self, measurement_reader, lon0=measurement_reader.lon,
+            lat0=measurement_reader.lat, radius_m=std)
+
     def __repr__(self):
-        return (f"Reader: {self.name}\n  variables: {self.variables}\n"
-                f"  proj4: {self.proj4}\n")
+        s = f"Reader: {self.name}\n  variables: {self.variables}\n"
+        s += f"  proj4: {self.proj4}\n"
+        if self.xmin is not None:
+            s += f"  x: {self.xmin} .. {self.xmax}\n"
+        if self.ymin is not None:
+            s += f"  y: {self.ymin} .. {self.ymax}\n"
+        if self.start_time is not None:
+            s += f"  time: {self.start_time} .. {self.end_time}\n"
+        return s
 
 
 class ContinuousReader(BaseReader):

@@ -17,6 +17,7 @@ import threading
 import time
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from ..errors import VariableNotCoveredError
@@ -52,6 +53,10 @@ class Environment:
         if not isinstance(readers, (list, tuple)):
             readers = [readers]
         for reader in readers:
+            if getattr(reader, "is_lazy", False):
+                # a lazy reader is built when it joins an environment: its
+                # variables decide the priority chains
+                reader.initialise()
             name = reader.name
             base = name
             suffix = 0
@@ -218,7 +223,7 @@ class Environment:
         environment.py:499-923).  ``key``: optional rng key enabling the
         configured current/wind uncertainty noise (reference
         environment.py:865-891).  ``member``: the element IDs, for readers
-        keyed on them (``needs_ids``).  ``block_ctx``: optional (plan index,
+        keyed on them (``needs_ids``) and ensemble readers.  ``block_ctx``: optional (plan index,
         corner block, covers0): that reader's variables are evaluated from
         the gathered block, with no further gather (single-fetch RK shares
         one block between the fetch and every stage).  Returns
@@ -241,7 +246,9 @@ class Environment:
                 vals, covers = reader.sample_from_block(
                     dev_state, block_ctx[1], t, lon, lat, fetch)
                 covers = covers & block_ctx[2]
-            elif member is not None and getattr(reader, "needs_ids", False):
+            elif member is not None and (
+                    getattr(reader, "ensemble_size", 1) > 1
+                    or getattr(reader, "needs_ids", False)):
                 vals, covers = reader.sample(dev_state, fetch, t, lon, lat,
                                              z, member=member)
             else:
@@ -277,6 +284,42 @@ class Environment:
                         noise = std * rng.normal(k2, lon.shape, lon.device)
                     env[var] = env[var] + noise
         return env, missing
+
+    def get_variables_along_trajectory(self, variables, lons, lats, times,
+                                       z=0.0):
+        """Sample environment variables at a sequence of (time, position)
+        observations, the input of wind-drift-factor calibration
+        (reference environment.py:925-941).  Needs :meth:`finalize` first.
+        One window covers every time; each observation is sampled at its
+        own time on this environment's device.  Returns ``{'time': [...],
+        var: np.ndarray[N]}``."""
+        if not getattr(self, "_plan", None):
+            raise RuntimeError(
+                "Environment not finalized — call finalize() first")
+        variables = list(variables)
+        epoch = times[0]
+        for reader, _ in self._plan:
+            reader.set_run_epoch(epoch)
+        span = (times[-1] - times[0]).total_seconds()
+        self.prepare_readers(interval_seconds=span if span > 0 else None)
+        dev_states = self.build_device_states(times[0], times[-1])
+        lonv = torch.as_tensor(np.asarray(lons, np.float32),
+                               device=self.device)
+        latv = torch.as_tensor(np.asarray(lats, np.float32),
+                               device=self.device)
+        zv = torch.full_like(lonv, float(z))
+        series = {v: [] for v in variables}
+        for i, t in enumerate(times):
+            trel = np.float32((t - epoch).total_seconds())
+            sl = slice(i, i + 1)
+            env, _ = self.get_environment(dev_states, variables, trel,
+                                          lonv[sl], latv[sl], zv[sl])
+            for v in variables:
+                series[v].append(env[v])
+        result = {"time": list(times)}
+        for v in variables:
+            result[v] = torch.cat(series[v]).cpu().numpy()
+        return result
 
     def uv_block_plan_index(self):
         """Plan index of the single top-priority reader serving BOTH

@@ -17,8 +17,11 @@ basereader/structured.py:15-628, interpolation/structured.py:12-186):
 Storage per reader: ``packed_dtype`` 'float32' (default), 'float16' (half
 the bytes, relative error ~1e-3) or 'float16x2' (compensated float16
 pairs, ~2^-21); ``packed_auto_compensate`` lets a reader take the
-compensated storage for large tables by itself.  Not ported yet: ensemble
-members and domain-decomposition bands (ROADMAP A.14).
+compensated storage for large tables by itself.  Ensemble forcing packs
+its members one after the other and serves them round-robin by element ID
+(the ``member`` channel).  ``set_convolution_kernel`` smooths frames on
+the host at load.  Not ported yet: domain-decomposition bands (ROADMAP
+A.14).
 """
 
 import logging
@@ -181,12 +184,30 @@ class StructuredGridReader(BaseReader):
         i0 = int(np.clip(i0, 0, max(n - F, 0)))
         return list(range(i0, min(i0 + F, n)))
 
-    def _load_frame(self, std, ti):
+    def set_convolution_kernel(self, convolve):
+        """Smooth every loaded frame with a convolution kernel: an int N
+        (N x N box) or a 2D array (reference structured.py:163-192), on the
+        host at frame load, before packing."""
+        if convolve is None:
+            self._convolve_kernel = None
+        else:
+            if isinstance(convolve, (int, np.integer)):
+                kernel = np.ones((int(convolve), int(convolve)))
+            else:
+                kernel = np.asarray(convolve, dtype=np.float64)
+            self._convolve_kernel = kernel / kernel.sum()
+        self._frame_cache.clear()
+
+    def _load_frame(self, std, ti, member=0):
         """Scrubbed, NaN-filled frame (host, cached)."""
-        key = (std, ti)
+        key = (std, ti, member)
         if key in self._frame_cache:
             return self._frame_cache[key]
-        raw = self._read_frame(std, ti, slice(None), self._iy, self._ix)
+        if getattr(self, "ensemble_size", 1) > 1:
+            raw = self._read_frame(std, ti, slice(None), self._iy, self._ix,
+                                   member)
+        else:
+            raw = self._read_frame(std, ti, slice(None), self._iy, self._ix)
         arr = np.asarray(raw, dtype=np.float32)
         if self._flip_x:
             arr = arr[..., ::-1]
@@ -199,8 +220,9 @@ class StructuredGridReader(BaseReader):
         return arr
 
     def _scrub_frame(self, std, arr):
-        """Valid-range scrub + NaN fill (reference interpolation/
-        structured.py:50-71, variables.py:630-668)."""
+        """Valid-range scrub, NaN fill and the optional convolution
+        (reference interpolation/structured.py:50-71,
+        variables.py:630-668)."""
         rng = STANDARD_NAMES.get(std)
         if std in NEAREST_VARIABLES:
             return np.nan_to_num(arr, nan=1.0)  # unknown -> land
@@ -210,7 +232,17 @@ class StructuredGridReader(BaseReader):
         if arr.ndim == 3:
             arr = fill_towards_seafloor(arr)
         arr, _ = fill_invalid(arr)
-        return np.nan_to_num(arr, nan=0.0)
+        arr = np.nan_to_num(arr, nan=0.0)
+        kernel = getattr(self, "_convolve_kernel", None)
+        if kernel is not None:
+            from scipy import ndimage
+            if arr.ndim == 2:
+                arr = ndimage.convolve(arr, kernel, mode="nearest")
+            else:
+                arr = np.stack([ndimage.convolve(a, kernel, mode="nearest")
+                                for a in arr])
+            arr = arr.astype(np.float32)
+        return arr
 
     def device_state(self, window_start=None, window_end=None):
         """Pack the window's frames into the row layout: host arrays
@@ -256,8 +288,12 @@ class StructuredGridReader(BaseReader):
         self._sampler = PackedSampler(Z, ny, nx, F, col_of, pair_mode)
         out = {}
         if C > 0:
-            packed_all = self._pack(tidx, col_of, Z, C, pair_mode).reshape(
-                Z * ny * nx, -1)
+            # ensemble forcing: member m's rows start at m * Z*ny*nx
+            blocks = [self._pack_member(m, tidx, col_of, Z, C, pair_mode)
+                      .reshape(Z * ny * nx, -1)
+                      for m in range(getattr(self, "ensemble_size", 1))]
+            packed_all = np.concatenate(blocks, axis=0) if len(blocks) > 1 \
+                else blocks[0]
             dtype = getattr(self, "packed_dtype", None)
             # a reader whose sampling is approximate anyway may opt into
             # compensated storage for large tables; an explicit
@@ -320,21 +356,22 @@ class StructuredGridReader(BaseReader):
             out["depths"] = np.zeros((1,), dtype=np.float32)
         return out
 
-    def _pack(self, tidx, col_of, Z, C, pair_mode):
-        """The window in the row layout: (Z, ny, nx, C * k)."""
+    def _pack_member(self, m, tidx, col_of, Z, C, pair_mode):
+        """Ensemble member ``m``'s window in the row layout:
+        (Z, ny, nx, C * k)."""
         ny = self._iy.stop - self._iy.start
         nx = self._ix.stop - self._ix.start
         packed = np.empty((Z, ny, nx, C), dtype=np.float32)
         for v in self._group3:
             c0 = col_of[v][0]
             for fi, ti in enumerate(tidx):
-                packed[:, :, :, c0 + fi] = self._load_frame(v, ti)[:Z]
+                packed[:, :, :, c0 + fi] = self._load_frame(v, ti, m)[:Z]
         for v in self._group2:
             c0 = col_of[v][0]
             for fi, ti in enumerate(tidx):
-                packed[:, :, :, c0 + fi] = self._load_frame(v, ti)[None]
+                packed[:, :, :, c0 + fi] = self._load_frame(v, ti, m)[None]
         for v in self._static_packed + self._static_near:
-            packed[:, :, :, col_of[v][0]] = self._load_frame(v, 0)[None]
+            packed[:, :, :, col_of[v][0]] = self._load_frame(v, 0, m)[None]
         if pair_mode == "none":
             return packed
 
@@ -357,14 +394,37 @@ class StructuredGridReader(BaseReader):
         return packed
 
     # ---------------------------------------------------------- sampling -
+    def _grid_consts(self, device):
+        """The subset's origin and the cell size as float32 tensors on
+        ``device`` (made once per subset and device): a tensor divisor
+        keeps the index a true float32 division on the card, where
+        PyTorch's division by a host scalar can multiply by its
+        reciprocal instead."""
+        key = (device, self._ix.start, self._iy.start)
+        cache = self.__dict__.setdefault("_grid_const_cache", {})
+        if key not in cache:
+            cache[key] = tuple(
+                torch.tensor(np.float32(v), device=device)
+                for v in (self.x[self._ix][0], self.y[self._iy][0],
+                          self.delta_x, self.delta_y))
+        return cache[key]
+
     def _grid_indices(self, lon, lat):
         x, y = self.crs.fwd(tnp, lon, lat)
         if getattr(self.crs, "is_latlon", False):
             x = torch.where(x > self.xmax, x - 360.0, x)
             x = torch.where(x < self.xmin, x + 360.0, x)
-        x0 = float(self.x[self._ix][0])
-        y0 = float(self.y[self._iy][0])
-        return (x - x0) / self.delta_x, (y - y0) / self.delta_y
+        x0, y0, dx, dy = self._grid_consts(x.device)
+        return (x - x0) / dx, (y - y0) / dy
+
+    def _row_offset(self, member):
+        """Per-element first row of the element's ensemble member (round
+        robin on the element ID), or 0 for a single member."""
+        M = getattr(self, "ensemble_size", 1)
+        if M > 1 and member is not None:
+            s = self._sampler
+            return (member.to(torch.int64) % M) * (s.Z * s.Y * s.X)
+        return 0
 
     def _covers_idx(self, xi, yi, eps=1e-2):
         """In-grid test with a small index tolerance for float32 edge
@@ -382,7 +442,7 @@ class StructuredGridReader(BaseReader):
         t = np.float32(t)
         return bool((t >= times[0] - slack) & (t <= times[-1] + slack))
 
-    def sample(self, dev_state, varnames, t, lon, lat, z):
+    def sample(self, dev_state, varnames, t, lon, lat, z, member=None):
         if "packed_deferred" in dev_state:
             raise NotImplementedError("domain decomposition (ROADMAP A.14)")
         xi, yi = self._grid_indices(lon, lat)
@@ -392,6 +452,7 @@ class StructuredGridReader(BaseReader):
             covers = torch.zeros_like(covers)
         depth = torch.clamp_min(-z, 0.0)
         s = self._sampler
+        row_offset = self._row_offset(member)
         values = {}
         want_t = [v for v in varnames
                   if v in self._group3 or v in self._group2
@@ -401,7 +462,7 @@ class StructuredGridReader(BaseReader):
             # mask-only fetch: one rounded-index gather of plane 0
             x0 = torch.clamp(torch.round(xi).to(torch.int64), 0, s.X - 1)
             y0 = torch.clamp(torch.round(yi).to(torch.int64), 0, s.Y - 1)
-            g = take_rows(dev_state["packed"], y0 * s.X + x0)
+            g = take_rows(dev_state["packed"], y0 * s.X + x0 + row_offset)
             for v in want_n:
                 values[v] = g[:, s.col_of[v][0]].to(torch.float32)
             return values, covers
@@ -412,12 +473,13 @@ class StructuredGridReader(BaseReader):
             # RK stage refetch: u/v from the narrow companion table (same
             # stencil layout and arithmetic, bit-identical values)
             rows = uv_sampler.gather_rows(dev_state["packed_uv"], xi, yi,
-                                          depth, dev_state["depths"])
+                                          depth, dev_state["depths"],
+                                          row_offset=row_offset)
             values.update(uv_sampler.values(rows, times, t, want_t))
         elif want_t or want_n:
             ncols = [s.col_of[v][0] for v in want_n]
             res = s.gather_rows(dev_state["packed"], xi, yi, depth,
-                                dev_state["depths"],
+                                dev_state["depths"], row_offset=row_offset,
                                 nearest_cols=ncols or None)
             if ncols:
                 rows, near = res
@@ -443,7 +505,8 @@ class StructuredGridReader(BaseReader):
         return (s is not None and s.pair_mode in ("x", "xy", "xyz")
                 and all(v in served for v in UV))
 
-    def corner_block(self, dev_state, lon, lat, z, keep_vars=None):
+    def corner_block(self, dev_state, lon, lat, z, member=None,
+                     keep_vars=None):
         """Gather the stage-reusable corner block at the given positions;
         also returns the position coverage mask.  ``keep_vars`` defaults
         to the current components; with every variable this reader serves
@@ -454,12 +517,13 @@ class StructuredGridReader(BaseReader):
         covers = self._covers_idx(xi, yi)
         block = self._sampler.gather_corner_block(
             dev_state["packed"], xi, yi, torch.clamp_min(-z, 0.0),
-            dev_state["depths"], keep_vars=keep_vars)
+            dev_state["depths"], row_offset=self._row_offset(member),
+            keep_vars=keep_vars)
         return block, covers
 
-    def uv_corner_block(self, dev_state, lon, lat, z):
+    def uv_corner_block(self, dev_state, lon, lat, z, member=None):
         """Corner block holding only u/v (single-fetch RK stages)."""
-        return self.corner_block(dev_state, lon, lat, z)
+        return self.corner_block(dev_state, lon, lat, z, member=member)
 
     def sample_from_block(self, dev_state, block, t, lon, lat, varnames):
         """Evaluate kept variables from a gathered corner block at

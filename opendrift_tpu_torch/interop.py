@@ -115,7 +115,10 @@ def device_state_from_numpy(arrays, device):
     ``device`` (float32 stays float32), tensors go there (no copy when
     they are there already: a static raster's state is built once), table
     storages their device form, host keys stay numpy, other entries pass
-    through."""
+    through.  A tuple of states (the operand readers of
+    ``fields/operators.py``) becomes a tuple of device states."""
+    if isinstance(arrays, (tuple, list)):
+        return tuple(device_state_from_numpy(a, device) for a in arrays)
     out = {}
     for k, v in dict(arrays).items():
         if k in HOST_KEYS:

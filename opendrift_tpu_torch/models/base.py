@@ -18,10 +18,9 @@ matches upstream; the internals follow the JAX package:
   with threefry bit-equal to the JAX package's (``rng.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card a CUDA request raises.  Deferred: seeding from files and
-datasets (ROADMAP A.9), domain decomposition, particle sharding and
-capacity padding (A.14), and the post-processing and plotting mixins
-(A.13).
+without a card a CUDA request raises.  Deferred: domain decomposition,
+particle sharding and capacity padding (ROADMAP A.14), and the
+post-processing and plotting mixins (A.13).
 """
 
 import json
@@ -274,6 +273,16 @@ class OpenDriftSimulation(Timeable, Configurable):
     @require_mode([Mode.Config, Mode.Ready])
     def add_reader(self, readers, variables=None, first=False):
         self.env.add_reader(readers, variables=variables, first=first)
+        return self
+
+    def add_readers_from_list(self, urls, timeout=None, lazy=True,
+                              variables=None):
+        """Open readers for a list of local paths or reader schemes
+        (``fields/factory.py``; reference environment.py:248-265)."""
+        from ..fields.factory import reader_from_url
+        readers = [reader_from_url(u) for u in urls]
+        readers = [r for r in readers if r is not None]
+        self.add_reader(readers, variables=variables)
         return self
 
     # ----------------------------------------------------------- seeding --
@@ -577,6 +586,44 @@ class OpenDriftSimulation(Timeable, Configurable):
                 self.seed_within_polygon(poly[:, 0], poly[:, 1],
                                          number=int(cnt), **kwargs)
         return self
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_from_dataset(self, ds, **kwargs):
+        """Continue from the last valid state of a previous result: each
+        element still active at its last finite position is seeded there,
+        at that time, with its other element properties (reference
+        basemodel/__init__.py:1681-1732)."""
+        lon = ds["lon"].values
+        lat = ds["lat"].values
+        status = ds["status"].values
+        times = ds.coords["time"]
+        n, T = lon.shape
+        last = np.array([np.where(np.isfinite(row))[0][-1]
+                         if np.isfinite(row).any() else -1 for row in lon])
+        keep = (last >= 0) & (status[np.arange(n), np.maximum(last, 0)]
+                              == ACTIVE)
+        idx = np.where(keep)[0]
+        if len(idx) == 0:
+            raise ValueError("No active elements to continue from")
+        seed_time = np.asarray(times)[last[idx]]
+        seed_time = [t.astype("datetime64[us]").item() for t in seed_time]
+        props = {}
+        for name in self.ElementType.variables:
+            if name in ("lon", "lat", "ID", "status"):
+                continue
+            if name in ds:
+                props[name] = ds[name].values[idx, last[idx]]
+        props.update(kwargs)
+        return self.seed_elements(lon[idx, last[idx]], lat[idx, last[idx]],
+                                  time=np.array(seed_time),
+                                  number=len(idx), **props)
+
+    @require_mode([Mode.Config, Mode.Ready])
+    def seed_from_file(self, filename, **kwargs):
+        """Continue from a previous output file (reference
+        basemodel/__init__.py:1733-1744)."""
+        from ..export.io_netcdf import read_result
+        return self.seed_from_dataset(read_result(filename), **kwargs)
 
     # --------------------------------------------------------- status -----
     def register_status(self, reason):
@@ -1040,8 +1087,10 @@ class OpenDriftSimulation(Timeable, Configurable):
         status_missing = self.status_code("missing_data")
         status_seafloor = self.status_code("seafloor")
         # readers keyed on element IDs (per-element environment seeding)
+        # and ensemble forcing (elements ride members round-robin by ID)
         # are given the IDs through the ``member`` channel
         has_ids = any(getattr(r, "needs_ids", False)
+                      or getattr(r, "ensemble_size", 1) > 1
                       for r in env.readers.values())
         bounds = [(self.get_config(f"drift:deactivate_{side}_of"), name, op)
                   for side, name, op in (("west", "lon", torch.lt),
@@ -1088,9 +1137,12 @@ class OpenDriftSimulation(Timeable, Configurable):
             if plan is None:
                 return None
             block_idx, block_keep = plan
-            block, covers0 = env._plan[block_idx][0].corner_block(
+            b_reader = env._plan[block_idx][0]
+            member = d["ID"] if getattr(b_reader, "ensemble_size", 1) > 1 \
+                else None
+            block, covers0 = b_reader.corner_block(
                 dev_states[block_idx], d["lon"], d["lat"], d["z"],
-                keep_vars=block_keep)
+                member=member, keep_vars=block_keep)
             return (block_idx, block, covers0)
 
         def coastline(d, active, envs, dev_states, t_rel, block_ctx):
@@ -1417,6 +1469,7 @@ class StepContext(PhysicsContext):
         key = self.next_key() if self.sim.env.uncertainty else None
         member = None
         if any(getattr(r, "needs_ids", False)
+               or getattr(r, "ensemble_size", 1) > 1
                for r in self.sim.env.readers.values()):
             member = self.state.data["ID"]
         envs, _ = self.sim.env.get_environment(

@@ -56,8 +56,10 @@ class PhysicsContext:
                 if idx is not None:
                     reader = self.sim.env._plan[idx][0]
                     dev_state = self.dev_states[idx]
+                    member = d["ID"] if getattr(
+                        reader, "ensemble_size", 1) > 1 else None
                     block, covers0 = reader.uv_corner_block(
-                        dev_state, d["lon"], d["lat"], d["z"])
+                        dev_state, d["lon"], d["lat"], d["z"], member=member)
                     block_ctx = (reader, dev_state, block, covers0)
 
         def stage(uvel, vvel, dist_frac, t_frac):

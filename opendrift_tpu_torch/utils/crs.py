@@ -1,14 +1,15 @@
 """Map projections (proj4-string subset), generic over the array namespace.
 
-The port's copy of the part of ``opendrift_tpu/utils/crs.py`` this slice
-reaches: the geographic CRS that ``ArrayReader(proj4="+proj=latlong")``
-uses and the stereographic CRS of the double-gyre test flow.  Functions
-take the array namespace ``xp`` (numpy, or ``utils.xp.tnp`` for torch);
-the formulas are the JAX package's, unchanged.  Mercator, Lambert
-conformal, transverse Mercator and rotated-pole projections come with the
-further structured readers (ROADMAP A.9).
+The port's copy of ``opendrift_tpu/utils/crs.py``: longlat, stere
+(spherical oblique and polar, ellipsoidal polar, conformal-sphere
+oblique), merc, lcc (one or two standard parallels), tmerc/utm (Krüger
+series, 4th order), ob_tran (rotated pole over longlat), and the ESRI WKT
+parser of .prj files.  Functions take the array namespace ``xp`` (numpy
+on the host, ``utils.xp.tnp`` for torch tensors on the reader's device,
+inside the samplers); the formulas are the JAX package's, unchanged.
 
-Formulae follow Snyder, "Map Projections — A Working Manual" (USGS PP 1395).
+Formulae follow Snyder, "Map Projections — A Working Manual" (USGS PP 1395)
+and Karney (2011) for the transverse-Mercator series.
 """
 
 import math
@@ -287,6 +288,202 @@ class StereographicCRS(CRS):
         return _numeric_convergence(self, xp, lon, lat)
 
 
+class MercatorCRS(CRS):
+    def __init__(self, proj4):
+        super().__init__(proj4)
+        lat_ts = float(self.params.get("lat_ts", 0.0))
+        phits = math.radians(lat_ts)
+        if self.e == 0.0:
+            self.k_eff = self.k_0 * math.cos(phits)
+        else:
+            self.k_eff = self.k_0 * _msfn(math.sin(phits), math.cos(phits), self.e2)
+
+    def _fwd(self, xp, dlon, lat):
+        x = self.a * self.k_eff * dlon
+        if self.e == 0.0:
+            y = self.a * self.k_eff * xp.log(xp.tan(math.pi / 4 + lat / 2))
+        else:
+            y = -self.a * self.k_eff * xp.log(_ts(xp, lat, self.e))
+        return x, y
+
+    def _inv(self, xp, x, y):
+        lon = x / (self.a * self.k_eff)
+        if self.e == 0.0:
+            lat = math.pi / 2 - 2.0 * xp.arctan(xp.exp(-y / (self.a * self.k_eff)))
+        else:
+            lat = _phi_from_ts(xp, xp.exp(-y / (self.a * self.k_eff)), self.e)
+        return lon, lat
+
+    def convergence(self, xp, lon, lat):
+        return xp.zeros_like(lon + lat)
+
+
+class LambertConformalCRS(CRS):
+    """+proj=lcc (Snyder ch. 15)."""
+
+    def __init__(self, proj4):
+        super().__init__(proj4)
+        p = self.params
+        lat_1 = float(p.get("lat_1", self.lat_0))
+        lat_2 = float(p.get("lat_2", lat_1))
+        phi1, phi2 = math.radians(lat_1), math.radians(lat_2)
+        phi0 = math.radians(self.lat_0)
+        e, e2 = self.e, self.e2
+        m1 = _msfn(math.sin(phi1), math.cos(phi1), e2)
+        t1 = _ts(math, phi1, e) if e > 0 else math.tan(math.pi / 4 - phi1 / 2)
+        if abs(lat_1 - lat_2) > 1e-10:
+            m2 = _msfn(math.sin(phi2), math.cos(phi2), e2)
+            t2 = _ts(math, phi2, e) if e > 0 else math.tan(math.pi / 4 - phi2 / 2)
+            self.n = math.log(m1 / m2) / math.log(t1 / t2)
+        else:
+            self.n = math.sin(phi1)
+        self.F = m1 / (self.n * t1 ** self.n)
+        t0 = _ts(math, phi0, e) if e > 0 else math.tan(math.pi / 4 - phi0 / 2)
+        self.rho0 = self.a * self.F * t0 ** self.n * self.k_0
+
+    def _t(self, xp, lat):
+        if self.e > 0:
+            return _ts(xp, lat, self.e)
+        return xp.tan(math.pi / 4 - lat / 2)
+
+    def _fwd(self, xp, dlon, lat):
+        t = self._t(xp, lat)
+        rho = self.a * self.F * t ** self.n * self.k_0
+        theta = self.n * dlon
+        return rho * xp.sin(theta), self.rho0 - rho * xp.cos(theta)
+
+    def _inv(self, xp, x, y):
+        n = self.n
+        yy = self.rho0 - y
+        rho = math.copysign(1.0, n) * xp.sqrt(x * x + yy * yy)
+        theta = xp.arctan2(math.copysign(1.0, n) * x, math.copysign(1.0, n) * yy)
+        lon = theta / n
+        t = (rho / (self.a * self.F * self.k_0)) ** (1.0 / n)
+        if self.e > 0:
+            lat = _phi_from_ts(xp, t, self.e)
+        else:
+            lat = math.pi / 2 - 2.0 * xp.arctan(t)
+        return lon, lat
+
+    def convergence(self, xp, lon, lat):
+        dlon = xp.radians(lon - self.lon_0)
+        dlon = xp.arctan2(xp.sin(dlon), xp.cos(dlon))
+        return self.n * dlon
+
+
+class TransverseMercatorCRS(CRS):
+    """+proj=tmerc / +proj=utm — Krüger series, 4th order (Karney 2011)."""
+
+    def __init__(self, proj4):
+        super().__init__(proj4)
+        p = self.params
+        if p.get("proj") == "utm":
+            zone = int(p.get("zone", 31))
+            self.lon_0 = zone * 6.0 - 183.0
+            self.k_0 = 0.9996
+            self.x_0 = 500000.0
+            self.y_0 = 10000000.0 if "south" in p else 0.0
+        f = self.f
+        n = f / (2.0 - f)
+        self.n = n
+        self.A_rect = self.a / (1.0 + n) * (1.0 + n * n / 4.0 + n ** 4 / 64.0)
+        self.alpha = [
+            n / 2.0 - 2.0 / 3.0 * n ** 2 + 5.0 / 16.0 * n ** 3 + 41.0 / 180.0 * n ** 4,
+            13.0 / 48.0 * n ** 2 - 3.0 / 5.0 * n ** 3 + 557.0 / 1440.0 * n ** 4,
+            61.0 / 240.0 * n ** 3 - 103.0 / 140.0 * n ** 4,
+            49561.0 / 161280.0 * n ** 4,
+        ]
+        self.beta = [
+            n / 2.0 - 2.0 / 3.0 * n ** 2 + 37.0 / 96.0 * n ** 3 - 1.0 / 360.0 * n ** 4,
+            1.0 / 48.0 * n ** 2 + 1.0 / 15.0 * n ** 3 - 437.0 / 1440.0 * n ** 4,
+            17.0 / 480.0 * n ** 3 - 37.0 / 840.0 * n ** 4,
+            4397.0 / 161280.0 * n ** 4,
+        ]
+
+    def _fwd(self, xp, dlon, lat):
+        e = self.e
+        sinphi = xp.sin(lat)
+        # conformal latitude
+        t = xp.sinh(xp.arctanh(sinphi) - e * xp.arctanh(e * sinphi)) \
+            if e > 0 else xp.sinh(xp.arctanh(sinphi))
+        xi = xp.arctan2(t, xp.cos(dlon))
+        eta = xp.arctanh(xp.sin(dlon) / xp.sqrt(1.0 + t * t))
+        x = eta
+        y = xi
+        for j, aj in enumerate(self.alpha, start=1):
+            x = x + aj * xp.cos(2 * j * xi) * xp.sinh(2 * j * eta)
+            y = y + aj * xp.sin(2 * j * xi) * xp.cosh(2 * j * eta)
+        return (self.k_0 * self.A_rect * x, self.k_0 * self.A_rect * y)
+
+    def _inv(self, xp, x, y):
+        eta = x / (self.k_0 * self.A_rect)
+        xi = y / (self.k_0 * self.A_rect)
+        xi_p, eta_p = xi, eta
+        for j, bj in enumerate(self.beta, start=1):
+            xi_p = xi_p - bj * xp.sin(2 * j * xi) * xp.cosh(2 * j * eta)
+            eta_p = eta_p - bj * xp.cos(2 * j * xi) * xp.sinh(2 * j * eta)
+        chi = xp.arcsin(xp.clip(
+            xp.sin(xi_p) / xp.cosh(eta_p), -1.0, 1.0))
+        # invert the conformal latitude by fixed-point iteration
+        e = self.e
+        phi = chi
+        for _ in range(5):
+            sp = xp.sin(phi)
+            phi = 2.0 * xp.arctan(
+                xp.tan(math.pi / 4 + chi / 2)
+                * ((1 + e * sp) / (1 - e * sp)) ** (e / 2)) - math.pi / 2
+        lon = xp.arctan2(xp.sinh(eta_p), xp.cos(xi_p))
+        return lon, phi
+
+    def convergence(self, xp, lon, lat):
+        return _numeric_convergence(self, xp, lon, lat)
+
+
+class ObTranCRS(CRS):
+    """+proj=ob_tran +o_proj=longlat (rotated pole, spherical).
+
+    NB: like PROJ, outputs are in *radians* times the sphere radius unless
+    the caller rescales; here we output degrees in the rotated frame, which
+    is what gridded rotated-pole datasets index by.
+    """
+
+    def __init__(self, proj4):
+        super().__init__(proj4)
+        p = self.params
+        o_lat_p = math.radians(float(p.get("o_lat_p", 90.0)))
+        self.o_lon_p = math.radians(float(p.get("o_lon_p", 0.0)))
+        self.sin_theta = math.sin(o_lat_p)
+        self.cos_theta = math.cos(o_lat_p)
+        self.lon0r = math.radians(self.lon_0)
+
+    def fwd(self, xp, lon, lat):
+        lam = xp.radians(lon) - self.lon0r
+        phi = xp.radians(lat)
+        st, ct = self.sin_theta, self.cos_theta
+        sinp = xp.sin(phi)
+        cosp = xp.cos(phi)
+        rot_lat = xp.arcsin(xp.clip(st * sinp - ct * cosp * xp.cos(lam), -1, 1))
+        rot_lon = xp.arctan2(cosp * xp.sin(lam),
+                             st * cosp * xp.cos(lam) + ct * sinp) - self.o_lon_p
+        return xp.degrees(rot_lon), xp.degrees(rot_lat)
+
+    def inv(self, xp, x, y):
+        lam = xp.radians(x) + self.o_lon_p
+        phi = xp.radians(y)
+        st, ct = self.sin_theta, self.cos_theta
+        sinp = xp.sin(phi)
+        cosp = xp.cos(phi)
+        lat = xp.arcsin(xp.clip(st * sinp + ct * cosp * xp.cos(lam), -1, 1))
+        lon = xp.arctan2(cosp * xp.sin(lam),
+                         st * cosp * xp.cos(lam) - ct * sinp) + self.lon0r
+        lon = xp.degrees(lon)
+        lon = (lon + 180.0) % 360.0 - 180.0
+        return lon, xp.degrees(lat)
+
+    def convergence(self, xp, lon, lat):
+        return _numeric_convergence(self, xp, lon, lat)
+
+
 def _numeric_convergence(crs, xp, lon, lat, dnorth=1e-4):
     """Convergence from finite difference along the meridian — the generic
     fallback mirroring the reference's azimuth-of-north method
@@ -301,18 +498,66 @@ _PROJ_CLASSES = {
     "latlon": LatLonCRS,
     "stere": StereographicCRS,
     "sterea": StereographicCRS,
+    "merc": MercatorCRS,
+    "lcc": LambertConformalCRS,
+    "tmerc": TransverseMercatorCRS,
+    "utm": TransverseMercatorCRS,
+    "ob_tran": ObTranCRS,
 }
-_LATER = ("merc", "lcc", "tmerc", "utm", "ob_tran")
+
+
+def from_esri_wkt(wkt):
+    """Build a CRS from an ESRI/OGC WKT string (.prj files).
+
+    Covers the projections this package implements; the reference parses
+    .prj via GDAL (unavailable here)."""
+    import re as _re
+
+    def param(name, default=0.0):
+        m = _re.search(rf'PARAMETER\["{name}",([-0-9.eE]+)\]', wkt,
+                       _re.IGNORECASE)
+        return float(m.group(1)) if m else default
+
+    sph = _re.search(r'SPHEROID\["[^"]*",([-0-9.eE]+),([-0-9.eE]+)\]', wkt)
+    if sph:
+        a = float(sph.group(1))
+        rf = float(sph.group(2))
+        ell = f"+a={a} +rf={rf}" if rf > 0 else f"+R={a}"
+    else:
+        ell = "+ellps=WGS84"
+
+    proj_m = _re.search(r'PROJECTION\["([^"]+)"\]', wkt, _re.IGNORECASE)
+    if proj_m is None:
+        return from_proj4("+proj=latlong")
+    pname = proj_m.group(1).lower()
+    lon0 = param("Central_Meridian")
+    lat0 = param("Latitude_Of_Origin")
+    x0 = param("False_Easting")
+    y0 = param("False_Northing")
+    if "mercator" in pname and "transverse" not in pname:
+        lat_ts = param("Standard_Parallel_1")
+        return from_proj4(f"+proj=merc +lon_0={lon0} +lat_ts={lat_ts} "
+                          f"+x_0={x0} +y_0={y0} {ell}")
+    if "transverse_mercator" in pname:
+        k0 = param("Scale_Factor", 1.0)
+        return from_proj4(f"+proj=tmerc +lon_0={lon0} +lat_0={lat0} "
+                          f"+k_0={k0} +x_0={x0} +y_0={y0} {ell}")
+    if "lambert_conformal" in pname:
+        lat1 = param("Standard_Parallel_1")
+        lat2 = param("Standard_Parallel_2", lat1)
+        return from_proj4(f"+proj=lcc +lon_0={lon0} +lat_0={lat0} "
+                          f"+lat_1={lat1} +lat_2={lat2} +x_0={x0} "
+                          f"+y_0={y0} {ell}")
+    if "stereographic" in pname:
+        return from_proj4(f"+proj=stere +lon_0={lon0} +lat_0={lat0} "
+                          f"+x_0={x0} +y_0={y0} {ell}")
+    raise NotImplementedError(f"WKT projection '{pname}' not supported")
 
 
 def from_proj4(proj4):
     """Construct a CRS from a proj4 string."""
     params = parse_proj4(proj4)
     name = params.get("proj")
-    if name in _LATER:
-        raise NotImplementedError(
-            f"'+proj={name}' is not ported yet (ROADMAP A.9, further "
-            "structured readers)")
     if name not in _PROJ_CLASSES:
         raise NotImplementedError(
             f"Projection '+proj={name}' is not implemented "

@@ -8,8 +8,8 @@ named by a hash of the source and flags, written under a temporary name
 and renamed, so processes that build it at once do not load a half-written
 file.  Where g++ fails the callers fall back to scipy/numpy, as the JAX
 package does; that is logged at WARNING and reported by
-``ops.interp.fill_route()``.  ``decode_i16`` comes with the NetCDF reader
-(ROADMAP A.9).
+``ops.interp.fill_route()`` and :func:`decode_route`.  ``decode_i16`` is the
+int16 CF decode of the NetCDF reader (``utils/ncio.py`` ``cf_unpack``).
 """
 
 import ctypes
@@ -66,8 +66,36 @@ def get_lib():
         fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                        ctypes.c_int, ctypes.c_int]
         fn.restype = None
+    lib.decode_i16.argtypes = [
+        ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_long, ctypes.c_float, ctypes.c_float, ctypes.c_int16,
+        ctypes.c_int]
+    lib.decode_i16.restype = None
     _LIB = lib
     return _LIB
+
+
+def decode_route():
+    """Which int16 CF decode ``cf_unpack`` takes: 'native' (``decode_i16``
+    of ``csrc/fieldpipe.cpp``, as in the JAX package) or 'numpy' (the
+    fallback where g++ failed)."""
+    return "native" if get_lib() is not None else "numpy"
+
+
+def decode_i16(raw, scale, offset, fill=None):
+    """int16 -> float32 CF unpack, ``raw * scale + offset`` in float32 with
+    ``fill`` -> NaN; None where the library cannot be built."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = np.ascontiguousarray(raw, dtype=np.int16)
+    out = np.empty(raw.shape, dtype=np.float32)
+    lib.decode_i16(raw.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                   out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                   raw.size, float(scale), float(offset),
+                   np.int16(fill) if fill is not None else 0,
+                   1 if fill is not None else 0)
+    return out
 
 
 def _call(name, field):

@@ -9,10 +9,11 @@ the machines that run the port need not have).
 """
 
 import os
-import re
 import struct
 
 import numpy as np
+
+from .crs import from_esri_wkt
 
 
 def read_shapefile(path):
@@ -54,8 +55,9 @@ def read_shapefile(path):
 def shapefile_polygons(path, to_lonlat=True):
     """All polygon rings from a shapefile as (n, 2) lon/lat arrays.
 
-    A sibling .prj of a geographic CRS passes; one that declares a
-    projection needs the ESRI WKT parser, which comes with ROADMAP A.9."""
+    When a sibling .prj declares a projected CRS and ``to_lonlat`` is
+    True, the rings are inverse-projected to lon/lat (``utils/crs.py``
+    ``from_esri_wkt``), as in the JAX package."""
     polys = []
     for shape in read_shapefile(path):
         if shape["type"] in (5, 15):
@@ -64,10 +66,10 @@ def shapefile_polygons(path, to_lonlat=True):
     if to_lonlat and os.path.exists(prj):
         with open(prj) as f:
             wkt = f.read()
-        if re.search(r"PROJECTION\[", wkt, re.IGNORECASE):
-            raise NotImplementedError(
-                f"{prj} declares a projected CRS; reading its ESRI WKT "
-                "(from_esri_wkt) is not ported yet (ROADMAP A.9)")
+        crs = from_esri_wkt(wkt)
+        if not crs.is_latlon:
+            polys = [np.column_stack(crs.inv(np, ring[:, 0], ring[:, 1]))
+                     for ring in polys]
     return polys
 
 

@@ -4,7 +4,8 @@
 array namespace ``xp`` (numpy on the host).  Passing :data:`tnp` runs the
 same formulas on torch tensors, so the port keeps one copy of that math
 instead of a torch rewrite.  Only the names those two modules use are
-provided.
+provided (every projection of ``crs.py``, the tmerc series and Mercator's
+logarithms included).
 """
 
 import torch
@@ -18,6 +19,11 @@ class _TorchNumpy:
     arctan = staticmethod(torch.arctan)
     arctan2 = staticmethod(torch.arctan2)
     arcsin = staticmethod(torch.arcsin)
+    arctanh = staticmethod(torch.arctanh)
+    sinh = staticmethod(torch.sinh)
+    cosh = staticmethod(torch.cosh)
+    log = staticmethod(torch.log)
+    exp = staticmethod(torch.exp)
     abs = staticmethod(torch.abs)
     radians = staticmethod(torch.deg2rad)
     degrees = staticmethod(torch.rad2deg)

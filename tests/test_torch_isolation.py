@@ -76,6 +76,43 @@ def test_the_landmask_slice_is_covered_and_keeps_its_own_copies():
             assert a.read() == b.read(), port_copy
 
 
+def test_the_file_reader_slice_is_covered():
+    """The NetCDF/ROMS slice's modules are among the sources checked above
+    (and so import neither JAX nor the JAX package)."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("utils/ncio.py", "utils/crs.py", "fields/netcdf.py",
+                 "fields/roms.py", "fields/regrid.py", "fields/lazy.py",
+                 "fields/operators.py", "fields/factory.py",
+                 "fields/catalog.py", "fields/grib.py", "fields/analytic.py",
+                 "tools/synthetic_nc.py"):
+        assert name in have, name
+
+
+def test_netcdf4_without_h5py_names_it(tmp_path, monkeypatch):
+    """h5py is not on the card machine: a NetCDF-4 file raises an
+    ImportError that names it, and NetCDF-3 files still open."""
+    import builtins
+    from opendrift_tpu_torch.utils import ncio
+    path = tmp_path / "nc4.nc"
+    path.write_bytes(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
+    real = builtins.__import__
+
+    def no_h5py(name, *args, **kw):
+        if name.split(".")[0] == "h5py":
+            raise ImportError("No module named 'h5py'")
+        return real(name, *args, **kw)
+    monkeypatch.setattr(builtins, "__import__", no_h5py)
+    with pytest.raises(ImportError, match="h5py"):
+        ncio.open_dataset(str(path))
+    from scipy.io import netcdf_file
+    nc3 = str(tmp_path / "nc3.nc")
+    f = netcdf_file(nc3, "w")
+    f.createDimension("x", 2)
+    f.createVariable("x", "d", ("x",))[:] = [1.0, 2.0]
+    f.close()
+    assert list(ncio.open_dataset(nc3).variables["x"][:]) == [1.0, 2.0]
+
+
 def test_no_module_imports_matplotlib_at_module_level():
     """matplotlib is not on the card machine: a port module imports it
     only inside the function that needs it (``seed_letters``)."""

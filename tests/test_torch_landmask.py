@@ -181,12 +181,20 @@ def test_global_landmask_dispatches_to_a_shapefile(shp, monkeypatch):
 
 
 def test_projected_prj_names_its_queue(shp):
+    """A .prj that declares a projection: the rings are inverse-projected
+    through ``from_esri_wkt`` (ported with ROADMAP A.9) as the JAX package
+    does it, to 1e-9 degrees (float64 on both sides)."""
     with open(os.path.splitext(shp)[0] + ".prj", "w") as f:
         f.write(PROJCS)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ShapeReader(shp)
+    got = tshapefile.shapefile_polygons(shp)
+    want = jshapefile.shapefile_polygons(shp)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)
+        assert not np.allclose(g, RING if len(g) == len(RING) else HOLE)
     # without the conversion the rings are read as they are
-    assert len(tshapefile.shapefile_polygons(shp, to_lonlat=False)) == 2
+    raw = tshapefile.shapefile_polygons(shp, to_lonlat=False)
+    np.testing.assert_array_equal(raw[0], RING)
 
 
 def test_points_in_ring_matches_matplotlib():
