@@ -68,6 +68,24 @@ printing its own line:
    rate and reader share, the stranded share, the seconds of a window's
    decode (native against numpy) and fill, and the milliseconds of one
    grid-index call (projection or index map) with the calls a step;
+4b. mesh path: a default ``OceanDrift(device="cuda")`` run on a SCHISM
+   native-output file and a GRIB2 wind the script writes
+   (``opendrift_tpu_torch/tools/synthetic_mesh.py``,
+   ``synthetic_grib.py``): a mesh over Lofoten and Vestfjorden in UTM 33N
+   of about 60,000 nodes and 119,000 triangles whose coast is the bundled
+   raster's, 20 levels with time-varying ``zcor``, 9 hourly frames,
+   sampled natively on the card (triangle lookup and walk, then a column
+   gather of each variable's node values); an ECMWF-like 0.1-degree 10 m
+   wind, 16-bit simple packing.  2M elements seeded as in the coast path
+   over the top 30 m, RK4, Visser mixing through the windspeed kernel,
+   three intervals after one untimed.  Checked: the windspeed kernel once
+   a step and no other, 0.5-50% stranded on the mesh's coast and the rest
+   active, no active element outside the mesh at any output, no NaN where
+   an element is valid, the peak memory below one whole-node-row
+   sample's; printed: the reader build and its parts (the regridder, the
+   lookup raster, the neighbours), one window's GRIB decode, the
+   milliseconds of one triangle lookup and one column gather with their
+   calls a step, and a profiled interval;
 5. oil path: ``OpenOil(device="cuda")`` on the same ocean extended with
    waves, temperature, salinity and a coast (a reader-served landmask),
    2M elements of GENERIC MEDIUM CRUDE seeded at the surface, RK4,
@@ -98,10 +116,11 @@ printing its own line:
 9. generic loop: one interval of OpenOil with ``TSprofiles`` and one of
    OceanDrift with ``use_pallas=False``;
 10. card against CPU: the same small OceanDrift, OpenOil, sampler-path,
-   coast-path and file-path configurations (the files on coarser grids;
-   ROMS with ``sampling="native"`` and ``"regrid"``) on ``cuda`` and on
-   ``cpu`` from one seed, held to the slice tolerance (the coast and file
-   paths with every status equal).
+   coast-path, file-path and mesh-path configurations (the files on
+   coarser grids; ROMS and SCHISM with ``sampling="native"`` and
+   ``"regrid"``) on ``cuda`` and on ``cpu`` from one seed, held to the
+   slice tolerance (the coast, file and mesh paths with every status
+   equal).
 
 Then the seconds of each phase, one JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -1668,6 +1687,235 @@ def roms_card_against_cpu(files):
                               sampling=sampling)
 
 
+# ------------------------------------------------------- mesh path -------
+# A SCHISM user's configuration: the port's own writers give a regional
+# mesh over Lofoten and Vestfjorden in UTM 33N (about 60,000 nodes and
+# 119,000 triangles, its coast that of the bundled raster, 20 levels) and
+# an ECMWF-HRES-like GRIB2 wind at 0.1 degrees, both with 9 hourly frames:
+# the timed run spans 7.5 h, and an element beyond a reader's last frame
+# (and its one step of slack) would leave the run for missing data.
+MESH_SMALL = dict(spacing_m=3000.0, nlev=8)
+WIND_SMALL = dict(res=0.25)
+MESH_STRANDED = (0.005, 0.5)     # the stranded share the path must reach
+
+
+def write_mesh_files(directory, small=False):
+    """The SCHISM and GRIB files of the mesh path, at the models' widths
+    or (``small``) on coarser grids over the same areas; returns {name:
+    path}."""
+    from opendrift_tpu_torch.tools import synthetic_grib, synthetic_mesh
+    return {"schism": synthetic_mesh.write_schism_lofoten(
+                os.path.join(directory, "schism.nc"),
+                **(MESH_SMALL if small else {})),
+            "ecmwf": synthetic_grib.write_ecmwf_wind(
+                os.path.join(directory, "ecmwf.grib2"),
+                **(WIND_SMALL if small else {}))}
+
+
+def mesh_simulation(device, n, files, sampling="native", seed=0):
+    """A default OceanDrift run of ``n`` elements on the SCHISM file (the
+    mesh's coverage its landmask; 3D currents z-sliced onto the default
+    depths) and the GRIB wind, read as a user would: RK4, Visser mixing
+    with windspeed_Large1994 on the GRIB wind, horizontal diffusivity 10
+    m2/s, dt = 900 s with 60 s substeps, seeded by ``seed_from_wkt`` west
+    of the Lofoten wall over the top 30 m.  Returns (simulation, seconds
+    to build the readers)."""
+    from opendrift_tpu_torch.models.oceandrift import OceanDrift
+    from opendrift_tpu_torch.fields.grib import GribReader
+    from opendrift_tpu_torch.fields.unstructured import SCHISMReader
+    from opendrift_tpu_torch.tools.synthetic_mesh import UTM33
+    t = time.perf_counter()
+    ocean = SCHISMReader(files["schism"], proj4=UTM33, use_3d=True,
+                         sampling=sampling, name="schism")
+    wind = GribReader(files["ecmwf"], name="ecmwf")
+    build_s = time.perf_counter() - t
+    o = OceanDrift(loglevel=40, device=device, seed=seed)
+    o.add_reader([ocean, wind])
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("vertical_mixing:diffusivitymodel", "windspeed_Large1994")
+    o.set_config("vertical_mixing:timestep", 60.0)
+    o.set_config("drift:horizontal_diffusivity", 10.0)
+    r = np.random.default_rng(seed + 1)
+    o.seed_from_wkt(COAST_WKT, time=ocean.times[0], number=n,
+                    z=-r.uniform(0.0, 30.0, n))
+    return o, build_s
+
+
+def mesh_build_parts(reader):
+    """Seconds of the host tables of ``reader``'s build, each built again
+    from the reader's nodes: the regridder (made in native mode too, as in
+    the JAX package), the lookup raster and the neighbour table."""
+    from opendrift_tpu_torch.fields import mesh
+    from opendrift_tpu_torch.fields.regrid import DelaunayRegridder
+    ms = reader._mesh
+    out = {}
+    t = time.perf_counter()
+    DelaunayRegridder(reader._node_lon, reader._node_lat)
+    out["regridder_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh.locate_grid(reader._node_lon, reader._node_lat, ms.triangles,
+                     ms.lx0, ms.ldx, ms.nx, ms.ly0, ms.ldy, ms.ny)
+    out["lookup_raster_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh.tri_neighbors(ms.triangles)
+    out["neighbours_s"] = time.perf_counter() - t
+    out.update(nodes=ms.n_nodes, triangles=len(ms.triangles),
+               lookup=[ms.ny, ms.nx])
+    return out
+
+
+def grib_decode_seconds(reader):
+    """Seconds of one window's GRIB decode of ``reader``: every frame of
+    every variable of the window, each decoding its whole message as
+    ``_read_frame`` does."""
+    tidx = reader._frame_indices(None, None)
+    t = time.perf_counter()
+    for v in reader._group2:
+        for ti in tidx:
+            reader._read_frame(v, ti, None, slice(None), slice(None))
+    return {"frames": len(tidx) * len(reader._group2),
+            "seconds": time.perf_counter() - t}
+
+
+def mesh_layer_ms(reader, o):
+    """Milliseconds of one ``locate_device``, of one column gather
+    (``blend_columns``: 3 node values an element, blended) and of one
+    z-resolved variable's sample from the node rows (4 column gathers: 2
+    frames x 2 levels) at the run's element positions on the card, by CUDA
+    events (median)."""
+    import torch
+    from opendrift_tpu_torch.interop import device_state_from_numpy
+    from opendrift_tpu_torch.tools.kernel_check import cuda_ms
+    d = o.state.data
+    lon, lat, z = d["lon"], d["lat"], d["z"]
+    ms = reader._mesh
+    dev_state = device_state_from_numpy(reader.device_state(), o.device)
+    locate = cuda_ms(lambda: ms.locate_device(lon, lat))
+    _, w, nidx, _, _ = ms.locate_device(lon, lat)
+    rows = dev_state["node_rows"]
+    column = cuda_ms(lambda: ms.blend_columns(rows, w, nidx, 0))
+    variable = cuda_ms(lambda: reader._mesh_values(
+        dev_state, np.float32(0.0), w, nidx, ["x_sea_water_velocity"],
+        torch.clamp_min(-z, 0.0)))
+    return {"locate_ms": locate, "column_gather_ms": column,
+            "variable_3d_ms": variable, "elements": int(lon.numel())}
+
+
+def check_mesh_result(o, n, frames, reader):
+    """The mesh path's own checks: no NaN where an element is valid, the
+    stranded share within MESH_STRANDED, and at every output no active
+    element outside the mesh by the reader's own ``locate_device`` on the
+    run's device; every element active or stranded at the end (none left
+    for missing data).  Returns the shares."""
+    import torch
+    shares = check_sampler_result(o, n, frames)
+    lo, hi = MESH_STRANDED
+    if not lo <= shares["stranded_share"] <= hi:
+        raise AssertionError(f"{shares['stranded_share']} of the elements "
+                             f"stranded, outside [{lo}, {hi}]")
+    if shares["active_share"] + shares["stranded_share"] < 0.99:
+        raise AssertionError(f"only {shares['active_share']} of the "
+                             "elements active and not stranded at the end")
+    status = np.asarray(o.result["status"].values)
+    outside = 0
+    for k in range(frames):
+        act = status[:, k] == 0
+        lon, lat = (torch.as_tensor(np.asarray(o.result[v].values)[act, k],
+                                    device=o.device) for v in ("lon", "lat"))
+        inside = reader._mesh.locate_device(lon, lat)[3]
+        outside += int((~inside).sum())
+    if outside:
+        raise AssertionError(f"{outside} active elements outside the mesh")
+    return shares
+
+
+def mesh_path(files, n=2_000_000, intervals=3):
+    """The mesh path at full width: one untimed interval, then the timed
+    run, which must launch the windspeed kernel once a step and no other
+    mixing kernel.  Returns (its launches, the run's numbers)."""
+    import torch
+    from opendrift_tpu_torch.fields import mesh
+    from opendrift_tpu_torch.ops import mixing
+    parts = {}
+    t = time.perf_counter()
+    o, _ = mesh_simulation("cuda", n, files)
+    run_sampler(o, 1)
+    first = n * 10 / (o.timers["main loop"]
+                      - o.timers.get("main loop:readers", 0.0))
+    del o
+    parts["untimed_s"] = time.perf_counter() - t
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    t = time.perf_counter()
+    o, build_s = mesh_simulation("cuda", n, files)
+    parts["setup_s"] = time.perf_counter() - t
+    ocean, wind = o.env.readers["schism"], o.env.readers["ecmwf"]
+    if "matplotlib" in sys.modules:
+        raise AssertionError("matplotlib was imported")
+    calls = {"locate": 0, "column_gather": 0}
+    real = (mesh.MeshSampler.locate_device, mesh.MeshSampler.blend_columns)
+
+    def locate(self, *a, **kw):
+        calls["locate"] += 1
+        return real[0](self, *a, **kw)
+
+    def columns(*a, **kw):
+        calls["column_gather"] += 1
+        return real[1](*a, **kw)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    mesh.MeshSampler.locate_device = locate
+    mesh.MeshSampler.blend_columns = staticmethod(columns)
+    try:
+        secs = run_sampler(o, intervals)
+    finally:
+        mesh.MeshSampler.locate_device = real[0]
+        mesh.MeshSampler.blend_columns = staticmethod(real[1])
+    peak = torch.cuda.max_memory_allocated()
+    launches = mixing.visser_mixing.launches
+    steps = 10 * intervals
+    assert launches == steps, f"{launches} launches of visser_mixing " \
+        f"in {steps} steps"
+    for k in kernels[1:]:
+        assert k.launches == 0, f"mesh_path launched {k.__name__}"
+    checks = check_mesh_result(o, n, intervals + 1, ocean)
+    stats = run_stats(o, n, steps, secs)
+    stats["particle_steps_per_s_steps_only_untimed_interval"] = first
+    stats["reader_build_s"] = build_s
+    step_ms = (stats["main_loop_s"] - stats["readers_s"]) / steps * 1e3
+    columns = sum(ocean._mesh_Z * ocean._mesh_F if kind == "t3" else
+                  ocean._mesh_F if kind == "t" else 1
+                  for _, kind in ocean._mesh_cols.values())
+    # one sample of the window's whole node rows: three gathered (N, C)
+    # rows and the blended one, float32
+    whole_rows_bytes = 4 * 4 * n * columns
+    if peak >= whole_rows_bytes:
+        raise AssertionError(f"peak {peak} B not below one whole-row "
+                             f"sample's {whole_rows_bytes} B")
+    t = time.perf_counter()
+    host = {"build_parts": mesh_build_parts(ocean),
+            "grib_decode": grib_decode_seconds(wind)}
+    parts["host_timing_s"] = time.perf_counter() - t
+    layer = mesh_layer_ms(ocean, o)
+    layer.update({f"{k}_calls_per_step": v / steps
+                  for k, v in calls.items()})
+    log("mesh_path", launches=launches, sampling=ocean._sampling,
+        depths=len(ocean.depths), node_columns=columns, step_ms=step_ms,
+        peak_mem_gb=peak / 1e9, whole_row_sample_gb=whole_rows_bytes / 1e9,
+        mesh_layer=layer, phase_parts=parts, wind_tier=
+        wind._sampler.pair_mode, **host, **checks, **stats)
+    profile_interval(o, phase="mesh_path_profile")
+    return launches, stats
+
+
+def mesh_card_against_cpu(files):
+    for sampling in ("native", "regrid"):
+        file_card_against_cpu("mesh", mesh_simulation, files,
+                              sampling=sampling)
+
+
 # -------------------------------------------- tiers and storages ----------
 
 def final_frame(o):
@@ -1964,8 +2212,11 @@ def run_phases(kind, power, t, seconds, workdir):
             seconds[name] = time.perf_counter() - t
 
     files = timed("write_files", write_files, workdir)
+    files.update(timed("write_mesh_files", write_mesh_files, workdir))
     os.mkdir(os.path.join(workdir, "small"))
     small_files = write_files(os.path.join(workdir, "small"), small=True)
+    small_files.update(write_mesh_files(os.path.join(workdir, "small"),
+                                        small=True))
     log("files", **{k: {"path": os.path.basename(v),
                         "mb": os.path.getsize(v) / 1e6}
                     for k, v in files.items()})
@@ -1981,6 +2232,7 @@ def run_phases(kind, power, t, seconds, workdir):
     coast_launches, coast_stats = timed("coast_path", coast_path)
     netcdf_launches, netcdf_stats = timed("netcdf_path", netcdf_path, files)
     roms_launches, roms_stats = timed("roms_path", roms_path, files)
+    mesh_launches, mesh_stats = timed("mesh_path", mesh_path, files)
     launches["visser_mixing_oil"], oil_stats = timed("oil_path", oil_path)
     for path, name, count, st in (
             ("main", "visser_mixing", launches["visser_mixing"], stats),
@@ -1988,7 +2240,8 @@ def run_phases(kind, power, t, seconds, workdir):
              oil_stats),
             ("coast", "visser_mixing", coast_launches, coast_stats),
             ("netcdf", "visser_mixing", netcdf_launches, netcdf_stats),
-            ("roms", "visser_mixing_profile", roms_launches, roms_stats)):
+            ("roms", "visser_mixing_profile", roms_launches, roms_stats),
+            ("mesh", "visser_mixing", mesh_launches, mesh_stats)):
         mixing_s = rows[name]["ms"] * 1e-3 * count
         log("mixing_share", path=path, kernel=name, mixing_s=mixing_s,
             share_of_steps=mixing_s / (st["main_loop_s"] - st["readers_s"]))
@@ -2011,7 +2264,7 @@ def run_phases(kind, power, t, seconds, workdir):
     # every path that launches each kernel, with its count in that path
     rows["visser_mixing"]["paths"] = {
         "main": launches["visser_mixing"], "coast": coast_launches,
-        "netcdf": netcdf_launches}
+        "netcdf": netcdf_launches, "mesh": mesh_launches}
     rows["visser_mixing_profile"]["paths"] = {
         "sampler": launches["visser_mixing_profile"], "roms": roms_launches}
     rows["visser_mixing_oil"]["paths"] = {
@@ -2028,6 +2281,7 @@ def run_phases(kind, power, t, seconds, workdir):
         timed(name, fn)
     timed("netcdf_card_against_cpu", netcdf_card_against_cpu, small_files)
     timed("roms_card_against_cpu", roms_card_against_cpu, small_files)
+    timed("mesh_card_against_cpu", mesh_card_against_cpu, small_files)
     log("phase_seconds", total=time.perf_counter() - t, **seconds)
 
     kernels = [{k: v for k, v in row.items()

@@ -5,9 +5,9 @@ opendrift/readers/__init__.py:176-279 ``reader_from_urlpath`` and
 ``applicable_readers``): ``<reader>://path`` scheme prefixes, the analytic
 schemes ``constant:``, ``oscillating:`` and ``double_gyre:``, and probing
 of local files (CF NetCDF, ROMS when its grid variables are present,
+FVCOM when it has UGRID connectivity, Telemac Selafin by its suffix,
 shapefiles for landmasks).  Remote URLs fail as in the JAX package, with
-no network access attempted.  Unstructured files (FVCOM, Telemac) raise
-``NotImplementedError`` until ROADMAP A.10 ports their readers.
+no network access attempted.
 """
 
 import logging
@@ -104,9 +104,10 @@ def reader_from_url(url, lazy=False):
         return ShapeReader(url)
 
     if url.endswith((".slf", ".sel", ".res")):
-        raise NotImplementedError(
-            f"{url}: Telemac/Selafin files are read by TelemacReader, which "
-            "is not ported yet (ROADMAP A.10, unstructured readers)")
+        from .unstructured import TelemacReader
+        # Selafin carries no CRS; only openable directly when the mesh
+        # coordinates are already geographic
+        return TelemacReader(url, proj4="+proj=latlong")
 
     # NetCDF probing: ROMS if the grid variables are present
     if lazy:
@@ -128,7 +129,6 @@ def _probe_netcdf(path):
     if is_roms:
         return ROMSReader(path)
     if is_ugrid:
-        raise NotImplementedError(
-            f"{path}: an FVCOM (UGRID) file is read by FVCOMReader, which "
-            "is not ported yet (ROADMAP A.10, unstructured readers)")
+        from .unstructured import FVCOMReader
+        return FVCOMReader(path)
     return NetCDFReader(path)

@@ -84,8 +84,40 @@ def test_the_file_reader_slice_is_covered():
                  "fields/roms.py", "fields/regrid.py", "fields/lazy.py",
                  "fields/operators.py", "fields/factory.py",
                  "fields/catalog.py", "fields/grib.py", "fields/analytic.py",
-                 "tools/synthetic_nc.py"):
+                 "tools/synthetic_nc.py", "utils/grib1.py", "utils/grib2.py",
+                 "utils/selafin.py", "fields/mesh.py",
+                 "fields/unstructured.py", "tools/synthetic_grib.py",
+                 "tools/synthetic_mesh.py"):
         assert name in have, name
+
+
+def test_mesh_sampler_builds_without_matplotlib(monkeypatch):
+    """matplotlib is not on the card machine: with it unimportable the
+    port still builds a MeshSampler (its own rasteriser), and its tables
+    equal the JAX package's built with matplotlib's trapezoid map."""
+    import builtins
+    import numpy as np
+    from scipy.spatial import Delaunay
+    from opendrift_tpu.fields.mesh import MeshSampler as JMeshSampler
+    from opendrift_tpu_torch.fields.mesh import MeshSampler
+    r = np.random.default_rng(2)
+    x, y = r.uniform(10.0, 12.0, 600), r.uniform(67.0, 68.0, 600)
+    tri = Delaunay(np.column_stack([x, y])).simplices
+    cent = np.column_stack([x, y])[tri].mean(axis=1)
+    tri = tri[np.hypot(cent[:, 0] - 11.0, cent[:, 1] - 67.5) > 0.2]
+    real = builtins.__import__
+
+    def no_matplotlib(name, *args, **kw):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError("No module named 'matplotlib'")
+        return real(name, *args, **kw)
+    monkeypatch.setattr(builtins, "__import__", no_matplotlib)
+    port = MeshSampler(x, y, triangles=tri)
+    monkeypatch.setattr(builtins, "__import__", real)
+    want = JMeshSampler(x, y, triangles=tri).device_arrays()
+    for k, v in port.device_arrays().items():
+        np.testing.assert_array_equal(v, np.asarray(want[k]), err_msg=k)
+    assert (port._raw < 0).any() and (port._raw >= 0).any()
 
 
 def test_netcdf4_without_h5py_names_it(tmp_path, monkeypatch):

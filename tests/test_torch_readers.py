@@ -1,7 +1,9 @@
 """What hangs off the port's readers: the lazy reader, the URL factory and
 its schemes, the catalog readers, the reader algebra, the standalone
 diagnostics, seeding from a previous result and ``add_readers_from_list``,
-each against the JAX package on the same synthetic files.
+and the analytic readers (the eddy, the failing reader, the track and
+drifter currents, the time series, the static 2D grid), each against the
+JAX package on the same synthetic files or inputs.
 
 Tolerances: samples of the same float32 expressions within ``EXACT_ATOL``
 (measured equal); the oscillating reader's host float32 ``sin`` against
@@ -11,7 +13,8 @@ XLA's within ``OSC_RTOL`` (an ulp or two); the gaussian blend's ``cos`` and
 sample, and XLA contracts the blends into multiply-adds there, so their
 values within ``JIT_ATOL`` (measured 1.3e-6 on currents of 0.3 m/s), and
 on the projected grid within ``PROJECTED_ATOL`` (the float32 projection,
-``tests/test_torch_crs.py``); seeding from a result is equal
+``tests/test_torch_crs.py``), or ``INDEX_ATOL`` of a cell times a field's
+largest step between cells; seeding from a result is equal
 element for element; runs are held to ``tests/test_torch_oceandrift.py``'s
 slice tolerance.
 """
@@ -40,6 +43,7 @@ OSC_RTOL = 1e-6
 GAUSS_ATOL = 1e-5
 JIT_ATOL = 1e-5
 PROJECTED_ATOL = 5e-4
+INDEX_ATOL = 1e-3
 N_RUN = 64
 
 
@@ -243,12 +247,16 @@ def test_factory_refusals(files, tmp_path):
         tfactory.reader_from_url("nonesuch://x")
     with pytest.raises(FileNotFoundError):
         tfactory.reader_from_url(str(tmp_path / "absent.nc"))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tfactory.reader_from_url(_write_ugrid(str(tmp_path / "fvcom.nc")))
+    # a UGRID file goes to FVCOMReader and a .slf file to TelemacReader,
+    # as in the JAX package; these two are malformed (no time axis, a
+    # truncated header) and fail there as they do in the JAX package
     slf = tmp_path / "mesh.slf"
     slf.write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tfactory.reader_from_url(str(slf))
+    for bad in (_write_ugrid(str(tmp_path / "fvcom.nc")), str(slf)):
+        with pytest.raises(Exception) as want:
+            jfactory.reader_from_url(bad)
+        with pytest.raises(want.type):
+            tfactory.reader_from_url(bad)
     made = []
     tfactory.register_scheme("mine", lambda p: made.append(p) or
                              T.ConstantReader({"x_wind": 1.0}))
@@ -271,14 +279,201 @@ def test_catalog_reads_from_the_local_cache_only(files, tmp_path,
 
 
 def test_not_yet_ported_readers_name_their_item():
-    from opendrift_tpu_torch.fields import analytic, grib
-    for cls in (T.ArtificialOceanEddy, T.FailingReader, T.TimeseriesReader,
-                T.CurrentFromTrack, T.CurrentFromDrifter,
-                analytic.Constant2DReader):
-        with pytest.raises(NotImplementedError, match="A.9b"):
-            cls()
-    with pytest.raises(NotImplementedError, match="A.9b"):
-        grib.GribReader("forcing.grb")
+    """The reader layer is whole; what is still to be ported raises and
+    names its ROADMAP item: a reader state of the domain decomposition
+    (A.14) and the fetch-tabulated Stokes drift (A.12)."""
+    grid = T.ArrayReader({"x_sea_water_velocity": np.zeros((2, 3, 4),
+                                                           np.float32)},
+                         np.arange(4.0), np.arange(3.0) + 60.0,
+                         [F.T0, F.T0 + timedelta(hours=1)])
+    pos = torch.zeros(2)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        grid.sample({"packed_deferred": None}, ["x_sea_water_velocity"],
+                    np.float32(0.0), pos, pos + 60.0, pos)
+    from opendrift_tpu_torch.models import OceanDrift
+    o = OceanDrift(loglevel=40, device="cpu")
+    o.add_reader(T.ConstantReader({
+        "sea_surface_wave_stokes_drift_x_velocity": 0.1,
+        "sea_surface_wave_stokes_drift_y_velocity": 0.0,
+        "sea_surface_wave_significant_height": 1.0}))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("drift:stokes_drift", True)
+    o.set_config("drift:use_tabularised_stokes_drift", True)
+    o.seed_elements(lon=4.0, lat=60.0, number=8, time=F.T0)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        o.run(duration=timedelta(hours=1), time_step=900)
+
+
+# ------------------------------------------------------ analytic readers --
+
+def _analytic_pair(name):
+    from opendrift_tpu.fields import analytic as janalytic
+    from opendrift_tpu_torch.fields import analytic as tanalytic
+    return getattr(janalytic, name), getattr(tanalytic, name)
+
+
+def _analytic_samples(j, t, names, times_s, lon, lat, z, t0):
+    """Both readers' samples at ``times_s`` (seconds from ``t0``, the run
+    epoch): [(JAX values, JAX covers, port values, port covers)]."""
+    js, ts = _states(j, t, t0, interval=max(times_s) or 3600.0)
+    return [(*_sample(j, js, names, trel, lon, lat, z, "jax"),
+             *_sample(t, ts, names, trel, lon, lat, z, "torch"))
+            for trel in times_s]
+
+
+def _assert_analytic_close(pairs, names, atol, rtol=0.0):
+    for jv, jc, tv, tc in pairs:
+        np.testing.assert_array_equal(tc, jc)
+        assert tc.any()
+        for v in names:
+            np.testing.assert_allclose(tv[v][tc], jv[v][tc], rtol=rtol,
+                                       atol=atol, err_msg=v)
+
+
+def test_artificial_ocean_eddy_matches_jax():
+    """The stereographic eddy: its float32 projection, convergence and
+    rotation; within PROJECTED_ATOL (m/s on currents of 0.3 m/s)."""
+    jc, tc = _analytic_pair("ArtificialOceanEddy")
+    j, t = jc(lon=2.0, lat=66.0), tc(lon=2.0, lat=66.0)
+    r = np.random.default_rng(4)
+    lon, lat = r.uniform(-1.0, 5.0, 800), r.uniform(64.0, 68.0, 800)
+    lon[:3], lat[:3] = 2.0, 66.0                      # the centre itself
+    names = ["x_sea_water_velocity", "y_sea_water_velocity"]
+    pairs = _analytic_samples(j, t, names, [0.0], lon, lat,
+                              np.zeros(800), F.T0)
+    _assert_analytic_close(pairs, names, PROJECTED_ATOL)
+    speed = np.hypot(*(pairs[0][2][v] for v in names))
+    assert 0.05 < speed.max() <= 0.3 + 1e-6
+
+
+def test_failing_reader_fails_in_both_and_is_quarantined():
+    """FailingReader raises on every fetch in both packages; a run with it
+    before a constant reader discards it after the environment's
+    quarantine count and runs on the constant current, as in the JAX
+    package."""
+    for mod in (J, T):
+        r = mod.FailingReader()
+        with pytest.raises(RuntimeError, match="always fails"):
+            r.device_state()
+    runs = {}
+    for pkg, mod in (("jax", J), ("torch", T)):
+        runs[pkg] = _run(pkg, [mod.FailingReader(), mod.ConstantReader(
+            {"x_sea_water_velocity": 0.2, "y_sea_water_velocity": 0.1})],
+            hours=3)
+    assert runs["torch"].env.discarded_readers.keys() == \
+        runs["jax"].env.discarded_readers.keys() == {"failing_reader"}
+    _assert_runs_close(runs["torch"], runs["jax"])
+
+
+def _track(n=7):
+    r = np.random.default_rng(5)
+    lon = 4.0 + np.cumsum(r.uniform(-0.01, 0.03, n))
+    lat = 60.0 + np.cumsum(r.uniform(-0.01, 0.02, n))
+    times = [F.T0 + timedelta(minutes=50 * i) for i in range(n)]
+    return lon, lat, times
+
+
+def test_current_from_track_matches_jax():
+    """Segment velocities from a track (geodesic inverse, windage) and the
+    piecewise-constant series at times before, inside and after it:
+    equal."""
+    lon, lat, times = _track()
+    jc, tc = _analytic_pair("CurrentFromTrack")
+    kw = dict(wind_east=3.0, wind_north=-1.0, windage_rate=0.02)
+    j, t = jc(lon, lat, times, **kw), tc(lon, lat, times, **kw)
+    np.testing.assert_array_equal(t._u, j._u)
+    np.testing.assert_array_equal(t._v, j._v)
+    names = ["x_sea_water_velocity", "y_sea_water_velocity"]
+    p = _points(50, seed=6)
+    pairs = _analytic_samples(j, t, names, [-600.0, 0.0, 2999.0, 3000.0,
+                                            7000.0, 99999.0], *p, times[0])
+    _assert_analytic_close(pairs, names, 0.0)
+
+
+def test_current_from_drifter_matches_jax():
+    """The drifter track with the monochromatic Stokes drift of a wave
+    reader subtracted, sampled once a segment at its midpoint and start
+    time (an ArrayReader of waves varying in space and time); within
+    ``JIT_ATOL`` (the JAX package jits and vectorises the wave samples)."""
+    lon, lat, times = _track()
+    wave_vars = ["sea_surface_wave_significant_height",
+                 "sea_surface_wave_stokes_drift_x_velocity",
+                 "sea_surface_wave_stokes_drift_y_velocity",
+                 "sea_surface_wave_mean_period_from_variance_spectral_"
+                 "density_inverse_frequency_moment"]
+    x, y = np.linspace(3.5, 5.0, 16), np.linspace(59.5, 60.8, 14)
+    wt = [times[0] + timedelta(hours=2 * i) for i in range(4)]
+    r = np.random.default_rng(7)
+    data = {v: (r.uniform(0.5, 3.0, (4, 14, 16)) * s).astype(np.float32)
+            for v, s in zip(wave_vars, (1.0, 0.1, 0.05, 4.0))}
+    made = {}
+    for pkg, mod in (("jax", J), ("torch", T)):
+        waves = mod.ArrayReader(data, x, y, wt, name="waves")
+        kw = {} if pkg == "jax" else {"device": "cpu"}
+        made[pkg] = mod.CurrentFromDrifter(lon, lat, times, waves=waves,
+                                           z=-1.0, **kw)
+    np.testing.assert_allclose(made["torch"]._u, made["jax"]._u, rtol=0,
+                               atol=JIT_ATOL)
+    np.testing.assert_allclose(made["torch"]._v, made["jax"]._v, rtol=0,
+                               atol=JIT_ATOL)
+    plain = T.CurrentFromTrack(lon, lat, times, windage_rate=0.0)
+    assert np.abs(made["torch"]._u - plain._u).max() > 1e-3
+
+
+def test_timeseries_reader_matches_jax():
+    """Linear interpolation of the series at times before, on, between and
+    after its samples: float32 on the host against ``jnp.interp``, within
+    ``OSC_RTOL``."""
+    times = [F.T0 + timedelta(minutes=37 * i) for i in range(6)]
+    series = {"x_wind": [1.0, 3.5, -2.0, 4.0, 4.0, 0.5],
+              "y_wind": [0.0, -1.0, 2.5, 2.5, 7.0, 1.0]}
+    j = J.TimeseriesReader(series, times, lon=4.0, lat=60.0)
+    t = T.TimeseriesReader(series, times, lon=4.0, lat=60.0)
+    names = list(series)
+    p = _points(20, seed=8)
+    pairs = _analytic_samples(j, t, names, [-900.0, 0.0, 1000.0, 2220.0,
+                                            4439.9, 9000.0, 11100.0,
+                                            20000.0], *p, times[0])
+    _assert_analytic_close(pairs, names, EXACT_ATOL, rtol=OSC_RTOL)
+
+
+@pytest.mark.parametrize("proj", ["latlong", "stere"])
+def test_constant_2d_reader_matches_jax(proj):
+    """Static 2D fields on a regular lat-lon or projected grid, sampled
+    bilinearly with the grid's coverage: equal to the JAX package's within
+    EXACT_ATOL; on the projected grid within INDEX_ATOL of a cell (the
+    float32 projection, ``tests/test_torch_crs.py``) times the fields'
+    largest step between neighbouring cells."""
+    r = np.random.default_rng(9)
+    if proj == "latlong":
+        x, y, proj4 = np.linspace(3.0, 6.0, 13), np.linspace(
+            59.0, 61.5, 11), "+proj=latlong"
+        lon, lat = r.uniform(2.8, 6.2, 600), r.uniform(58.9, 61.6, 600)
+        atol = EXACT_ATOL
+    else:
+        proj4 = ("+proj=stere +lat_0=90 +lon_0=70 +lat_ts=60 "
+                 "+R=6371000 +units=m")
+        x = np.linspace(-1.0e6, -0.8e6, 13)
+        y = np.linspace(-2.6e6, -2.4e6, 11)
+        from opendrift_tpu_torch.utils import crs as crslib
+        X, Y = np.meshgrid(x, y)
+        glon, glat = crslib.from_proj4(proj4).inv(np, X, Y)
+        lon = r.uniform(glon.min(), glon.max(), 600)
+        lat = r.uniform(glat.min(), glat.max(), 600)
+    arrays = {"sea_floor_depth_below_sea_level":
+              r.uniform(20.0, 400.0, (11, 13)),
+              "x_sea_water_velocity": r.normal(0.0, 0.3, (11, 13))}
+    if proj != "latlong":
+        atol = INDEX_ATOL * max(max(np.abs(np.diff(a, axis=k)).max()
+                                    for k in (0, 1))
+                                for a in arrays.values())
+    jc, tc = _analytic_pair("Constant2DReader")
+    j, t = jc(x, y, arrays, proj4=proj4), tc(x, y, arrays, proj4=proj4)
+    names = list(arrays)
+    pairs = _analytic_samples(j, t, names, [0.0], lon, lat,
+                              np.zeros(600), F.T0)
+    _assert_analytic_close(pairs, names, atol)
+    assert not pairs[0][3].all()
 
 
 # ---------------------------------------------------------- diagnostics ---
