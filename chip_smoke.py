@@ -86,6 +86,18 @@ printing its own line:
    lookup raster, the neighbours), one window's GRIB decode, the
    milliseconds of one triangle lookup and one column gather with their
    calls a step, and a profiled interval;
+4c. zoo paths: ``plast_path``, a microplastics user's PlastDrift run on
+   the main path's ocean and wind, 2M elements seeded over the top 5 m
+   rising at 0.01 m/s, RK4, PlastDrift's defaults (Sundby1983, the
+   fetch-tabulated Stokes drift and Hs from the wind), 'randomwalk' mixing
+   through the windspeed kernel, three intervals after one untimed
+   (checked: the kernel once a step and no other, nothing valid is NaN,
+   every z <= 0, more elements in the top 1 m at the end than at the
+   seed), then one interval of the default 'analytical' model (no mixing
+   kernel launched); ``leeway_path``, Leeway of the default object class
+   with capsizing on the same forcing, 2M elements (checked: nothing valid
+   is NaN, the cloud moved downwind; printed: the capsized and left/right
+   shares);
 5. oil path: ``OpenOil(device="cuda")`` on the same ocean extended with
    waves, temperature, salinity and a coast (a reader-served landmask),
    2M elements of GENERIC MEDIUM CRUDE seeded at the surface, RK4,
@@ -120,7 +132,10 @@ printing its own line:
    coarser grids; ROMS and SCHISM with ``sampling="native"`` and
    ``"regrid"``) on ``cuda`` and on ``cpu`` from one seed, held to the
    slice tolerance (the coast, file and mesh paths with every status
-   equal).
+   equal); ``zoo_card_against_cpu``: each of the eleven zoo classes under
+   its golden's constant fallbacks (``opendrift_tpu_torch/tools/
+   zoo_setups.py``) at 4,096 elements, then ShipDrift's peak memory in a
+   2M-element step and OpenBerg's 2M-element step time.
 
 Then the seconds of each phase, one JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -1918,6 +1933,226 @@ def mesh_card_against_cpu(files):
 
 # -------------------------------------------- tiers and storages ----------
 
+# ----------------------------------------------------- the model zoo -----
+
+PLAST_SEED_DEPTH = 5.0      # m: PlastDrift elements seeded over the top 5 m
+ZOO_N = 4096
+ZOO_CLASSES = ("windblow_euler", "seaice_euler", "leeway_stat",
+               "plast_stat", "sediment_stat", "pelagicegg_stat",
+               "larvalfish_stat", "larvalfish_extended", "openberg_det",
+               "shipdrift_stat", "sealice_stat")
+
+
+def zoo_simulation(cls, device, n, seed=0, forcing_kw=None):
+    """A zoo model of ``n`` elements on the main path's synthetic ocean
+    and wind, seeded as the main path seeds, no landmask."""
+    from opendrift_tpu_torch.fields import ArrayReader
+    current, wind, x, y, depths, times = forcing(**(forcing_kw or {}))
+    o = cls(loglevel=40, device=device, seed=seed)
+    o.add_reader(ArrayReader(current, x, y, times, depths=depths,
+                             name="ocean"))
+    o.add_reader(ArrayReader(wind, x, y, times, name="wind"))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    r = np.random.default_rng(seed + 1)
+    lon = r.uniform(float(x[len(x) // 4]), float(x[3 * len(x) // 4]), n)
+    lat = r.uniform(float(y[len(y) // 4]), float(y[3 * len(y) // 4]), n)
+    return o, lon, lat, times[0], r
+
+
+def plast_simulation(device, n, mixingmodel="randomwalk", seed=0,
+                     forcing_kw=None):
+    """A microplastics user's PlastDrift run: RK4, dt = 900 s, PlastDrift's
+    own defaults (windspeed_Sundby1983, the fetch-tabulated Stokes drift
+    and Hs from the wind, as no wave reader serves them), with
+    ``mixingmodel`` ('randomwalk' through the windspeed kernel, 60 s
+    substeps), elements seeded over the top 5 m with the default rising
+    terminal velocity of 0.01 m/s."""
+    from opendrift_tpu_torch.models import PlastDrift
+    o, lon, lat, t0, r = zoo_simulation(PlastDrift, device, n, seed,
+                                        forcing_kw)
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("vertical_mixing:mixingmodel", mixingmodel)
+    o.set_config("vertical_mixing:timestep", 60.0)
+    o.seed_elements(lon=lon, lat=lat, z=-r.uniform(0.0, PLAST_SEED_DEPTH, n),
+                    time=t0)
+    return o
+
+
+def leeway_simulation(device, n, seed=0, forcing_kw=None):
+    """A search-and-rescue Leeway run of the default object class on the
+    same forcing, dt = 900 s, capsizing on."""
+    from opendrift_tpu_torch.models import Leeway
+    o, lon, lat, t0, _ = zoo_simulation(Leeway, device, n, seed, forcing_kw)
+    o.set_config("processes:capsizing", True)
+    o.seed_elements(lon=lon, lat=lat, time=t0)
+    return o
+
+
+def top_share(z, depth=1.0):
+    return float(np.mean(np.asarray(z) > -depth))
+
+
+def plast_path(n=2_000_000, intervals=3):
+    """PlastDrift at full width: one untimed interval, then the timed run
+    with 'randomwalk' through the windspeed kernel; then one interval of
+    the default 'analytical' model, which launches no mixing kernel.
+    Returns (launches of the windspeed kernel, the run's numbers)."""
+    import torch
+    from opendrift_tpu_torch.export.io_netcdf import valid_mask
+    from opendrift_tpu_torch.ops import mixing
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    o = plast_simulation("cuda", n)
+    run_sampler(o, 1)
+    first = n * 10 / (o.timers["main loop"]
+                      - o.timers.get("main loop:readers", 0.0))
+    del o
+    o = plast_simulation("cuda", n)
+    seed_top = top_share(o._seedings[0]["z"])
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs = run_sampler(o, intervals)
+    launches = mixing.visser_mixing.launches
+    steps = 10 * intervals
+    assert launches == steps, f"{launches} K1 launches in {steps} steps"
+    assert mixing.visser_mixing_profile.launches == 0
+    assert mixing.visser_mixing_oil.launches == 0
+    checks = check_sampler_result(o, n, intervals + 1)
+    z = np.asarray(o.result["z"].values)
+    valid = valid_mask(np.asarray(o.result["status"].values), 0)
+    end_top = top_share(z[valid[:, -1], -1])
+    if not end_top > seed_top:
+        raise AssertionError(f"rising plastics: {end_top} in the top 1 m at "
+                             f"the end, {seed_top} at the seed")
+    stats = run_stats(o, n, steps, secs)
+    stats["particle_steps_per_s_steps_only_untimed_interval"] = first
+    log("plast_path", mixingmodel="randomwalk",
+        diffusivitymodel=o.get_config("vertical_mixing:diffusivitymodel"),
+        tabularised_stokes=o.get_config("drift:use_tabularised_stokes_drift"),
+        launches=launches, top_1m_share_seed=seed_top,
+        top_1m_share_end=end_top,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **checks, **stats)
+    del o
+    o = plast_simulation("cuda", n, mixingmodel="analytical")
+    for k in kernels:
+        k.launches = 0
+    secs = run_sampler(o, 1)
+    counts = [k.launches for k in kernels]
+    if any(counts):
+        raise AssertionError(f"'analytical' PlastDrift launched {counts}")
+    checks = check_sampler_result(o, n, 2)
+    z = np.asarray(o.result["z"].values)[:, -1]
+    log("plast_path", mixingmodel="analytical", launches=counts,
+        z_mean=float(z.mean()), top_1m_share_end=top_share(z), **checks,
+        **run_stats(o, n, 10, secs))
+    return launches, stats
+
+
+def leeway_path(n=2_000_000, intervals=3):
+    """Leeway at full width: one untimed interval, then the timed run.
+    Checked: no NaN where an element is valid, and the cloud moved
+    downwind (its mean displacement along the mean wind is positive)."""
+    import torch
+    from opendrift_tpu_torch.export.io_netcdf import valid_mask
+    o = leeway_simulation("cuda", n)
+    run_sampler(o, 1)
+    first = n * 10 / (o.timers["main loop"]
+                      - o.timers.get("main loop:readers", 0.0))
+    del o
+    o = leeway_simulation("cuda", n)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+          time_step_output=9000,
+          export_variables=["lon", "lat", "status", "capsized",
+                            "orientation"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    status = np.asarray(o.result["status"].values)
+    valid = valid_mask(status, 0)
+    lon = np.asarray(o.result["lon"].values, np.float64)
+    lat = np.asarray(o.result["lat"].values, np.float64)
+    for name, vals in (("lon", lon), ("lat", lat)):
+        if not np.isfinite(vals[valid]).all():
+            raise AssertionError(f"Leeway: non-finite {name}")
+    _, wind, *_ = forcing()
+    wx, wy = float(wind["x_wind"].mean()), float(wind["y_wind"].mean())
+    east = (lon[:, -1] - lon[:, 0]) * np.cos(np.deg2rad(lat[:, 0])) * 111e3
+    north = (lat[:, -1] - lat[:, 0]) * 111e3
+    downwind = (east * wx + north * wy) / np.hypot(wx, wy)
+    if not downwind.mean() > 0:
+        raise AssertionError(f"Leeway moved {downwind.mean()} m downwind")
+    capsized = np.asarray(o.result["capsized"].values)[:, -1]
+    orientation = np.asarray(o.result["orientation"].values)[:, -1]
+    stats = run_stats(o, n, 10 * intervals, secs)
+    stats["particle_steps_per_s_steps_only_untimed_interval"] = first
+    log("leeway_path", object_type=o.get_config("seed:object_type"),
+        downwind_m_mean=float(downwind.mean()),
+        downwind_share=float((downwind > 0).mean()),
+        capsized_share=float(capsized.mean()),
+        left_share=float((orientation == 1).mean()),
+        right_share=float((orientation == 0).mean()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **stats)
+    return stats
+
+
+def zoo_run(name, device, n, seed=0, steps=10, intervals=2):
+    """Configuration ``name`` of ``opendrift_tpu_torch/tools/
+    zoo_setups.py`` at ``n`` elements, ``intervals`` output intervals of
+    ``steps`` steps."""
+    from opendrift_tpu_torch.tools import zoo_setups
+    cfg = zoo_setups.config(name, n, seed)
+    o, _ = zoo_setups.setup(name, cfg, device)
+    dt = cfg["time_step"]
+    o.run(duration=timedelta(seconds=dt * steps * intervals), time_step=dt,
+          time_step_output=dt * steps)
+    return o
+
+
+def zoo_card_against_cpu(n=ZOO_N):
+    """Each of the eleven new classes on the card and on the CPU from one
+    seed, under the constant fallbacks of its golden: statuses equal but
+    for the share where an ulp may decide, lon/lat/z within the slice
+    tolerance; then ShipDrift's peak memory and OpenBerg's step time at
+    2M elements."""
+    import torch
+    out = {}
+    for name in ZOO_CLASSES:
+        got = final_frame(zoo_run(name, "cuda", n))
+        want = final_frame(zoo_run(name, "cpu", n))
+        status_diff, errs = hold_against(
+            f"zoo {name}", got, want, SLICE_MEDIAN_ATOL, SLICE_OUTLIER_ATOL,
+            SLICE_OUTLIER_SHARE, STORAGE_STATUS_SHARE)
+        out[name] = errs
+        log("zoo_card_vs_cpu", config=name, elements=n,
+            status_diff_share=status_diff, max_abs_err=errs,
+            active_share=float((got["status"] == 0).mean()))
+    big = 2_000_000
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    o = zoo_run("shipdrift_stat", "cuda", big, steps=1, intervals=1)
+    log("zoo_shipdrift_memory", elements=big,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_above_start_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+        step_s=(o.timers["main loop"]
+                - o.timers.get("main loop:readers", 0.0)))
+    del o
+    # the second of two runs: the first loads PyTorch's kernels
+    for _ in range(2):
+        o = zoo_run("openberg_det", "cuda", big, steps=4, intervals=1)
+        torch.cuda.synchronize()
+        step = (o.timers["main loop"]
+                - o.timers.get("main loop:readers", 0.0)) / 4
+        del o
+    log("zoo_openberg_step", elements=big, substeps=20, step_s=step,
+        particle_steps_per_s=big / step)
+    return out
+
+
 def final_frame(o):
     return {v: np.asarray(o.result[v].values)[:, -1]
             for v in ("lon", "lat", "z", "status")}
@@ -2234,6 +2469,8 @@ def run_phases(kind, power, t, seconds, workdir):
     roms_launches, roms_stats = timed("roms_path", roms_path, files)
     mesh_launches, mesh_stats = timed("mesh_path", mesh_path, files)
     launches["visser_mixing_oil"], oil_stats = timed("oil_path", oil_path)
+    plast_launches, plast_stats = timed("plast_path", plast_path)
+    timed("leeway_path", leeway_path)
     for path, name, count, st in (
             ("main", "visser_mixing", launches["visser_mixing"], stats),
             ("oil", "visser_mixing_oil", launches["visser_mixing_oil"],
@@ -2241,7 +2478,8 @@ def run_phases(kind, power, t, seconds, workdir):
             ("coast", "visser_mixing", coast_launches, coast_stats),
             ("netcdf", "visser_mixing", netcdf_launches, netcdf_stats),
             ("roms", "visser_mixing_profile", roms_launches, roms_stats),
-            ("mesh", "visser_mixing", mesh_launches, mesh_stats)):
+            ("mesh", "visser_mixing", mesh_launches, mesh_stats),
+            ("plast", "visser_mixing", plast_launches, plast_stats)):
         mixing_s = rows[name]["ms"] * 1e-3 * count
         log("mixing_share", path=path, kernel=name, mixing_s=mixing_s,
             share_of_steps=mixing_s / (st["main_loop_s"] - st["readers_s"]))
@@ -2264,7 +2502,8 @@ def run_phases(kind, power, t, seconds, workdir):
     # every path that launches each kernel, with its count in that path
     rows["visser_mixing"]["paths"] = {
         "main": launches["visser_mixing"], "coast": coast_launches,
-        "netcdf": netcdf_launches, "mesh": mesh_launches}
+        "netcdf": netcdf_launches, "mesh": mesh_launches,
+        "plast": plast_launches}
     rows["visser_mixing_profile"]["paths"] = {
         "sampler": launches["visser_mixing_profile"], "roms": roms_launches}
     rows["visser_mixing_oil"]["paths"] = {
@@ -2277,7 +2516,8 @@ def run_phases(kind, power, t, seconds, workdir):
                      ("card_against_cpu", card_against_cpu),
                      ("oil_card_against_cpu", oil_card_against_cpu),
                      ("sampler_card_against_cpu", sampler_card_against_cpu),
-                     ("coast_card_against_cpu", coast_card_against_cpu)):
+                     ("coast_card_against_cpu", coast_card_against_cpu),
+                     ("zoo_card_against_cpu", zoo_card_against_cpu)):
         timed(name, fn)
     timed("netcdf_card_against_cpu", netcdf_card_against_cpu, small_files)
     timed("roms_card_against_cpu", roms_card_against_cpu, small_files)

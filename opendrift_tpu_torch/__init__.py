@@ -9,8 +9,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The port grows one slice at a time (ROADMAP.md, queue A): so far an
 OceanDrift run on gridded forcing with Visser vertical mixing, the
 automatic coastline landmask and the polygon seeders, an OpenOil run
-(weathering, wave entrainment, stranding), and the result's round trip
-through :func:`open`.  The three mixing kernels are hand-written CUDA
+(weathering, wave entrainment, stranding), the whole reader layer, the
+first ten models of the zoo (:func:`get_model_names`), and the result's
+round trip through :func:`open`.  The three mixing kernels are hand-written CUDA
 (``csrc/visser_mixing.cu``); the host NaN fill is C++ built with g++
 (``csrc/fieldpipe.cpp``).
 """
@@ -23,6 +24,17 @@ __version__ = "0.1.0"
 _MODEL_REGISTRY = {
     "OceanDrift": "opendrift_tpu_torch.models.oceandrift",
     "OpenOil": "opendrift_tpu_torch.models.openoil",
+    "WindBlow": "opendrift_tpu_torch.models.windblow",
+    "SeaIceDrift": "opendrift_tpu_torch.models.seaicedrift",
+    "PelagicEggDrift": "opendrift_tpu_torch.models.pelagicegg",
+    "PlastDrift": "opendrift_tpu_torch.models.plastdrift",
+    "SedimentDrift": "opendrift_tpu_torch.models.sedimentdrift",
+    "Leeway": "opendrift_tpu_torch.models.leeway",
+    "ShipDrift": "opendrift_tpu_torch.models.shipdrift",
+    "OpenBerg": "opendrift_tpu_torch.models.openberg",
+    "LarvalFish": "opendrift_tpu_torch.models.larvalfish",
+    "LarvalFishExtended": "opendrift_tpu_torch.models.larvalfish",
+    "SeaLice": "opendrift_tpu_torch.models.sealice",
 }
 
 
@@ -33,12 +45,16 @@ def get_model_names():
 
 def get_model(model_name):
     """Import and return a model class by name
-    (reference opendrift/__init__.py:31-43)."""
+    (reference opendrift/__init__.py:31-43); a model of the JAX package's
+    zoo that is still to be ported raises ``NotImplementedError`` naming
+    ROADMAP item A.12b."""
     if model_name not in _MODEL_REGISTRY:
+        from .models import NOT_YET_PORTED, not_yet_ported
+        if model_name in NOT_YET_PORTED:
+            raise not_yet_ported(model_name)
         raise ValueError(
-            f"No drift model named {model_name} in the port; "
-            f"available: {list(_MODEL_REGISTRY)} (the rest of the model "
-            "zoo is ROADMAP item A.12)")
+            f"No drift model named {model_name}; "
+            f"available: {list(_MODEL_REGISTRY)}")
     module = importlib.import_module(_MODEL_REGISTRY[model_name])
     return getattr(module, model_name)
 

@@ -12,8 +12,8 @@ subclass can run its own fused kernel through the ``_mixing_fast_path``
 hook (OpenOil does, through ``visser_mixing_oil``).  Everything else takes
 the generic per-substep loop, a Python loop over the substeps with the
 kernels' own draws: ``vertical_mixing:use_pallas=False``, T/S profiles,
-and subclasses that override the substep hooks.  The machine-learning
-drift correction comes with ROADMAP A.12.
+and subclasses that override the substep hooks.  A small MLP may add a
+residual drift correction each step (``set_ml_correction``).
 """
 
 import logging
@@ -165,8 +165,12 @@ class OceanDrift(OpenDriftSimulation):
                 "type": "bool", "default": False,
                 "level": CONFIG_LEVEL_ADVANCED,
                 "description": "Estimate Stokes drift from wind via "
-                "fetch-tabulated coefficients (not ported yet: ROADMAP "
-                "A.12)"},
+                "fetch-tabulated coefficients when not provided by "
+                "readers"},
+            "drift:tabularised_stokes_drift_fetch": {
+                "type": "enum", "enum": ["5000", "25000", "50000"],
+                "default": "25000", "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Fetch length for tabulated Stokes drift"},
             "drift:relative_wind": {
                 "type": "bool", "default": False,
                 "level": CONFIG_LEVEL_ADVANCED,
@@ -220,11 +224,68 @@ class OceanDrift(OpenDriftSimulation):
         ctx.advect_ocean_current()
         ctx.advect_wind()
         ctx.stokes_drift()
+        self.update_terminal_velocity(ctx)
         if self.get_config("drift:vertical_mixing"):
             self.vertical_mixing(ctx)
         else:
             self.vertical_buoyancy(ctx)
         self.vertical_advection(ctx)
+        self.machine_learning_correction(ctx)
+
+    # ------------------------------------------------- ML drift correction
+    def set_ml_correction(self, weights, predictors, norm_in, norm_out,
+                          output_scale=1.0 / 3600.0):
+        """Attach a residual drift correction MLP (the JAX package's
+        counterpart of the reference's optional Keras model,
+        oceandrift.py:239-283).
+
+        ``weights``: list of (W, b) arrays (tanh between layers);
+        ``predictors``: environment variable names forming the input, in
+        order; ``norm_in``/``norm_out``: (mean, std) arrays for input and
+        output normalisation; the denormalised 2-component output is a
+        residual displacement which ``output_scale`` converts to m/s
+        (default: metres per hour to m/s), applied every step.
+        """
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)
+        self._ml = {
+            "weights": [(dev(W), dev(b)) for W, b in weights],
+            "predictors": list(predictors),
+            "norm_in": (dev(norm_in[0]), dev(norm_in[1])),
+            "norm_out": (dev(norm_out[0]), dev(norm_out[1])),
+            "scale": float(output_scale),
+        }
+        new = [v for v in predictors if v not in self.required_variables]
+        if new:
+            # an instance copy: the class's table stays as it is
+            self.required_variables = dict(self.required_variables)
+            for v in new:
+                self.required_variables[v] = {"fallback": 0.0}
+            self.env.required_variables = self.required_variables
+            # regenerate the environment:constant/fallback configs
+            self._add_environment_configs()
+
+    def machine_learning_correction(self, ctx):
+        """Apply the attached MLP's residual correction (nothing unless
+        :meth:`set_ml_correction` was called).  ``h @ W`` is a plain
+        matrix product."""
+        ml = getattr(self, "_ml", None)
+        if ml is None:
+            return
+        mi, si = ml["norm_in"]
+        mo, so = ml["norm_out"]
+        x = torch.stack([ctx.environment[p] for p in ml["predictors"]],
+                        dim=-1)
+        h = (x - mi) / si
+        n_layers = len(ml["weights"])
+        for i, (W, b) in enumerate(ml["weights"]):
+            h = torch.matmul(h, W) + b
+            if i < n_layers - 1:
+                h = torch.tanh(h)
+        out = h * so + mo
+        ctx.update_positions(out[:, 0] * ml["scale"],
+                             out[:, 1] * ml["scale"])
 
     # ------------------------------------------------------ model hooks ---
     def update_terminal_velocity(self, ctx, Tprofiles=None, Sprofiles=None,
@@ -466,3 +527,25 @@ class OceanDrift(OpenDriftSimulation):
         ctx.set_var("moving", torch.where(active, mix["moving"], moving))
         for k in extra:
             ctx.set_var(k, torch.where(active, mix[k], d[k]))
+
+    # ---------------------------------------------------- vertical plots --
+    @staticmethod
+    def get_diffusivity_profile(model, depths, wind_speed,
+                                mixed_layer_depth=50.0,
+                                background_diffusivity=0.0):
+        """K(depth, wind) matrix for the windspeed parameterisations
+        (reference oceandrift.py:385-396), in float32 on the host."""
+        from ..ops import physics as ph
+        wind, depth = np.meshgrid(np.atleast_1d(wind_speed),
+                                  np.atleast_1d(depths))
+        wind = torch.as_tensor(wind, dtype=torch.float32)
+        depth = torch.as_tensor(depth, dtype=torch.float32)
+        if model == "windspeed_Large1994":
+            return ph.verticaldiffusivity_Large1994(
+                wind, depth, mixed_layer_depth,
+                background_diffusivity).numpy()
+        if model == "windspeed_Sundby1983":
+            return ph.verticaldiffusivity_Sundby1983(
+                wind, depth, mixed_layer_depth,
+                background_diffusivity).numpy()
+        raise ValueError(f"unknown diffusivity model {model}")

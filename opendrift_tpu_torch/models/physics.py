@@ -5,8 +5,7 @@ opendrift/models/physics_methods.py:570-848): a mixin of ``StepContext``
 whose methods transform the element state with torch.  The RK stage
 refetches sample the same device field providers at displaced positions
 and times, or, with ``drift:advection_single_fetch``, re-evaluate one
-corner block gathered once a step.  Fetch-tabulated Stokes drift comes
-with ROADMAP A.12.
+corner block gathered once a step.
 """
 
 import numpy as np
@@ -138,13 +137,28 @@ class PhysicsContext:
             return
         if "sea_surface_wave_stokes_drift_x_velocity" not in self.environment:
             return
-        if self.sim.get_config("drift:use_tabularised_stokes_drift",
-                               default=False):
-            raise NotImplementedError(
-                "fetch-tabulated Stokes drift is not ported yet "
-                "(ROADMAP A.12)")
         su = self.environment["sea_surface_wave_stokes_drift_x_velocity"]
         sv = self.environment["sea_surface_wave_stokes_drift_y_velocity"]
+        # fetch-tabulated Stokes drift from wind where no wave model data
+        # (reference environment.py:844-863)
+        if self.sim.get_config("drift:use_tabularised_stokes_drift",
+                               default=False):
+            fetch = self.sim.get_config(
+                "drift:tabularised_stokes_drift_fetch", default="25000")
+            wx = self.environment.get("x_wind", torch.zeros_like(su))
+            wy = self.environment.get("y_wind", torch.zeros_like(sv))
+            pu, pv = ph.wave_stokes_drift_parameterised(wx, wy, fetch)
+            missing = (su == 0.0) & (sv == 0.0)
+            su = torch.where(missing, pu, su)
+            sv = torch.where(missing, pv, sv)
+            # the reference's environment hook also injects the tabulated
+            # Hs where no wave model serves it (environment.py:858-864), so
+            # the profile's decay scale comes from the same table
+            env_hs = self.environment.get(
+                "sea_surface_wave_significant_height", torch.zeros_like(su))
+            hs_param = ph.wave_significant_height_parameterised(wx, wy, fetch)
+            self.environment["sea_surface_wave_significant_height"] = \
+                torch.where(env_hs == 0.0, hs_param, env_hs)
         hs = self.significant_wave_height()
         tp = self.wave_period()
         hs = torch.where(hs <= 0.0, 1.0, hs)
@@ -192,6 +206,18 @@ class PhysicsContext:
         if hs is None:
             return wind_hs
         return torch.where(hs.max() > 0, hs, wind_hs)
+
+    def wave_from_direction(self):
+        """Wave FROM direction [deg]; with no wave field (an all-zero
+        sample, i.e. fallback-only forcing) the wind's direction
+        (reference physics_methods.py:869-875)."""
+        wd = self.environment.get("sea_surface_wave_from_direction")
+        wind_to = torch.rad2deg(torch.atan2(self.environment["x_wind"],
+                                            self.environment["y_wind"]))
+        wind_from = torch.remainder(wind_to + 180.0, 360.0)
+        if wd is None:
+            return wind_from
+        return torch.where(torch.abs(wd).max() > 0, wd, wind_from)
 
     def wave_period(self):
         """(reference physics_methods.py:918-944): prefer Tm02, then Tp,

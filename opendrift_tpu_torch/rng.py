@@ -10,12 +10,13 @@ the per-step mixing seed — and with it every mixing draw — is bit-equal
 to the JAX package's, and whole runs can be compared element by element.
 
 Keys are tiny and live on the host as :class:`Key` (two Python ints);
-only :func:`normal`/:func:`uniform` work on device tensors.  uint32
-arithmetic is carried in int64 tensors masked with ``& 0xFFFFFFFF``: CPU
-torch lacks most uint32 operators.  ``normal`` evaluates XLA's float32
-inverse error function on the same uniforms as JAX; ``log1p`` of the two
-libraries may differ by an ulp, so normals may differ by a few float32
-ulp (``tests/test_torch_rng.py`` states the bound).
+only :func:`normal`/:func:`uniform`/:func:`exponential` work on device
+tensors.  uint32 arithmetic is carried in int64 tensors masked with
+``& 0xFFFFFFFF``: CPU torch lacks most uint32 operators.  ``normal``
+evaluates XLA's float32 inverse error function on the same uniforms as
+JAX; ``log1p`` of the two libraries may differ by an ulp, so normals may
+differ by a few float32 ulp (``tests/test_torch_rng.py`` states the
+bound).
 """
 
 from dataclasses import dataclass
@@ -136,3 +137,12 @@ def normal(key, shape, device=None):
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, lo, 1.0, device)
     return float(np.float32(np.sqrt(2.0))) * erfinv(u)
+
+
+def exponential(key, shape, device=None):
+    """``jax.random.exponential`` in float32: -log1p(-u) of the same
+    uniforms.  XLA's CPU ``log1p`` is its own polynomial, not the
+    correctly rounded value, so a draw may differ from the JAX package's
+    by an ulp (``tests/test_torch_zoo.py`` states the bound)."""
+    u = uniform(key, shape, device=device)
+    return -torch.log1p(-u)

@@ -378,6 +378,58 @@ def test_openoil_run_on_the_card_goes_through_the_oil_kernel():
     assert (z_card[:, -1] < 0).any()
 
 
+def _plast_run(n=200_003):
+    from opendrift_tpu_torch.models import PlastDrift
+    from opendrift_tpu_torch.fields import ArrayReader
+    r = np.random.default_rng(2)
+    nt, ny, nx = 3, 20, 24
+    t0 = datetime(2021, 4, 1)
+    times = [t0 + timedelta(hours=3 * i) for i in range(nt)]
+    x, y = np.linspace(3.0, 5.0, nx), np.linspace(59.0, 60.5, ny)
+    f32 = np.float32
+    o = PlastDrift(loglevel=40, device="cuda")
+    o.add_reader(ArrayReader({
+        "x_sea_water_velocity": (0.2 * r.standard_normal(
+            (nt, ny, nx))).astype(f32),
+        "y_sea_water_velocity": (0.2 * r.standard_normal(
+            (nt, ny, nx))).astype(f32),
+        "x_wind": (8 + 3 * r.standard_normal((nt, ny, nx))).astype(f32),
+        "y_wind": (3 * r.standard_normal((nt, ny, nx))).astype(f32)},
+        x, y, times))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("vertical_mixing:mixingmodel", "randomwalk")
+    o.seed_elements(lon=r.uniform(3.5, 4.5, n), lat=r.uniform(59.4, 60.1, n),
+                    z=-r.uniform(0, 5, n), time=t0,
+                    terminal_velocity=r.uniform(0.0, 0.01, n))
+    o.run(duration=timedelta(hours=2), time_step=900, time_step_output=3600)
+    return o.result
+
+
+@pytest.mark.gpu
+def test_plastdrift_randomwalk_runs_k1_once_a_step_and_equals_plain(
+        monkeypatch):
+    """PlastDrift with 'randomwalk' (Sundby1983, rising elements) launches
+    the windspeed kernel once a step; the same run with the kernel's plain
+    version in its place, on the same card, is equal to the bit."""
+    _card()
+    before = mixing.visser_mixing.launches
+    card = _plast_run()
+    assert mixing.visser_mixing.launches == before + 8
+    kernel = mixing.visser_mixing
+
+    def plain(z, moving, w, wind, mld, zmin, seed, *, elem, **kw):
+        return mixing.visser_mixing_plain(z, moving, w, wind, mld, zmin,
+                                          elem, seed, **kw)
+    monkeypatch.setattr(mixing, "visser_mixing", plain)
+    yardstick = _plast_run()
+    assert kernel.launches == before + 8
+    for var in ("lon", "lat", "z", "status"):
+        np.testing.assert_array_equal(card[var].values,
+                                      yardstick[var].values, err_msg=var)
+    z = np.asarray(card["z"].values)
+    assert (z <= 0).all() and (z[:, -1] > -1).mean() > (z[:, 0] > -1).mean()
+
+
 # ------------------------------------------------ the row-gather kernels --
 
 from opendrift_tpu_torch.ops import gather  # noqa: E402

@@ -91,6 +91,26 @@ def test_the_file_reader_slice_is_covered():
         assert name in have, name
 
 
+def test_the_zoo_slice_is_covered():
+    """The model zoo's modules are among the sources checked above (and so
+    import neither JAX nor the JAX package), and the port carries its own
+    byte copies of the Leeway object classes and ShipDrift's force
+    table."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("models/windblow.py", "models/seaicedrift.py",
+                 "models/leeway.py", "models/plastdrift.py",
+                 "models/sedimentdrift.py", "models/pelagicegg.py",
+                 "models/larvalfish.py", "models/openberg.py",
+                 "models/shipdrift.py", "models/sealice.py",
+                 "models/physics.py", "ops/physics.py", "rng.py"):
+        assert name in have, name
+    for table in ("leeway_objects.json", "shipdrift_wforce.json"):
+        with open(os.path.join(PORT, "models", table), "rb") as a, \
+                open(os.path.join(REPO, "opendrift_tpu", "models", table),
+                     "rb") as b:
+            assert a.read() == b.read(), table
+
+
 def test_mesh_sampler_builds_without_matplotlib(monkeypatch):
     """matplotlib is not on the card machine: with it unimportable the
     port still builds a MeshSampler (its own rasteriser), and its tables

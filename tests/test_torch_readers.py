@@ -281,7 +281,7 @@ def test_catalog_reads_from_the_local_cache_only(files, tmp_path,
 def test_not_yet_ported_readers_name_their_item():
     """The reader layer is whole; what is still to be ported raises and
     names its ROADMAP item: a reader state of the domain decomposition
-    (A.14) and the fetch-tabulated Stokes drift (A.12)."""
+    (A.14) and the models of the zoo after the first ten (A.12b)."""
     grid = T.ArrayReader({"x_sea_water_velocity": np.zeros((2, 3, 4),
                                                            np.float32)},
                          np.arange(4.0), np.arange(3.0) + 60.0,
@@ -290,18 +290,9 @@ def test_not_yet_ported_readers_name_their_item():
     with pytest.raises(NotImplementedError, match="A.14"):
         grid.sample({"packed_deferred": None}, ["x_sea_water_velocity"],
                     np.float32(0.0), pos, pos + 60.0, pos)
-    from opendrift_tpu_torch.models import OceanDrift
-    o = OceanDrift(loglevel=40, device="cpu")
-    o.add_reader(T.ConstantReader({
-        "sea_surface_wave_stokes_drift_x_velocity": 0.1,
-        "sea_surface_wave_stokes_drift_y_velocity": 0.0,
-        "sea_surface_wave_significant_height": 1.0}))
-    o.set_config("environment:fallback:land_binary_mask", 0)
-    o.set_config("drift:stokes_drift", True)
-    o.set_config("drift:use_tabularised_stokes_drift", True)
-    o.seed_elements(lon=4.0, lat=60.0, number=8, time=F.T0)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        o.run(duration=timedelta(hours=1), time_step=900)
+    import opendrift_tpu_torch
+    with pytest.raises(NotImplementedError, match="A.12b"):
+        opendrift_tpu_torch.get_model("ChemicalDrift")
 
 
 # ------------------------------------------------------ analytic readers --
