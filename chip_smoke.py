@@ -98,6 +98,23 @@ printing its own line:
    with capsizing on the same forcing, 2M elements (checked: nothing valid
    is NaN, the cloud moved downwind; printed: the capsized and left/right
    shares);
+4d. chemistry: ``chemical_path``, a chemical-fate user's ChemicalDrift
+   run (Phenanthrene, degradation and volatilization on) on the oil path's
+   ocean and wind with suspended matter served by the ocean reader, 2M
+   elements seeded over the top 10 m, dt = 1800 s with 30 mixing substeps
+   a step through the generic loop, three intervals after one untimed
+   (checked: no mixing kernel launched, each element's mass plus its
+   degraded and volatilized mass equals its seeded mass to 1e-4, every
+   specie in [0, 5), sedimented elements frozen at the seafloor, nothing
+   valid is NaN; printed: the species occupation, a profiled interval and
+   the seconds of one density map of the 2M result);
+   ``radionuclide_path``, RadionuclideDrift (137Cs) on the same forcing,
+   one interval after one untimed; ``euler_field``, the Eulerian solver on
+   a 1000 x 1000 grid of 100 m cells, 100 steps, on the card and on the
+   CPU (the fields agree to 1e-5 of their maximum, the mass is kept to
+   1e-4; printed: device ms a stencil step); ``ftle_path``,
+   ``calculate_ftle`` on the double gyre at 2M seeds forward and
+   backward, then at 20,000 seeds on the card and on the CPU;
 5. oil path: ``OpenOil(device="cuda")`` on the same ocean extended with
    waves, temperature, salinity and a coast (a reader-served landmask),
    2M elements of GENERIC MEDIUM CRUDE seeded at the surface, RK4,
@@ -134,8 +151,11 @@ printing its own line:
    slice tolerance (the coast, file and mesh paths with every status
    equal); ``zoo_card_against_cpu``: each of the eleven zoo classes under
    its golden's constant fallbacks (``opendrift_tpu_torch/tools/
-   zoo_setups.py``) at 4,096 elements, then ShipDrift's peak memory in a
-   2M-element step and OpenBerg's 2M-element step time.
+   zoo_setups.py``) at 4,096 elements, and the chemistry slice's five
+   (the radionuclide and chemical goldens', a metals ChemicalDrift,
+   OpenHNS, ModelTemplate; every status equal, species equal but for 1%),
+   then ShipDrift's peak memory in a 2M-element step and OpenBerg's
+   2M-element step time.
 
 Then the seconds of each phase, one JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -738,14 +758,14 @@ def check_result(o, n, frames):
     return float(active.mean())
 
 
-def profile_interval(o, top=10, phase="profile"):
-    """Where one output interval (K = 10 steps) of the main path spends
-    its time on the card: the kernels by device time, and the device's
-    busy share of the interval's wall time (torch.profiler).  Not part of
-    the run whose launches are counted."""
+def profile_interval(o, top=10, phase="profile", dt=900.0):
+    """Where one output interval (K = 10 steps of ``dt`` seconds) of a path
+    spends its time on the card: the kernels by device time, and the
+    device's busy share of the interval's wall time (torch.profiler).  Not
+    part of the run whose launches are counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    advance, _, state, key = o.prepare_run(900.0, 10, total_steps=10)
+    advance, _, state, key = o.prepare_run(dt, 10, total_steps=10)
     dev_states = o.env.build_device_states()
     advance(state, dev_states, np.float32(0.0), key)     # warm-up
     torch.cuda.synchronize()
@@ -2099,6 +2119,371 @@ def leeway_path(n=2_000_000, intervals=3):
     return stats
 
 
+# ------------------------------------------------------------ phase 4d ----
+
+CHEM_SEED_DEPTH = 10.0      # m: chemical elements seeded over the top 10 m
+CHEM_DT = 1800.0            # s, as the chemical_stat golden
+CHEM_EXPORT = ["lon", "lat", "z", "status", "moving", "specie", "mass",
+               "mass_degraded", "mass_volatilized"]
+CHEM_MASS_RTOL = 1e-4       # per element: mass + degraded + volatilized
+SPECIATION_SHARE = 0.01     # species of card and CPU runs may differ
+SEAFLOOR_ATOL = 1e-3        # m: sedimented elements sit at the seafloor
+CHEM_ZOO = ("radionuclide_stat", "chemical_stat", "chemical_metals",
+            "hns_butyl", "model_template")
+
+
+def mixing_kernels():
+    from opendrift_tpu_torch.ops import mixing
+    return (mixing.visser_mixing, mixing.visser_mixing_profile,
+            mixing.visser_mixing_oil)
+
+
+def chemistry_forcing(**kw):
+    """The oil path's ocean (currents, 3D temperature and salinity, the
+    coast along the eastern side) and wind, with suspended particulate
+    matter served as a further variable of the ocean reader: 1-20 g/m3,
+    highest at the surface next to the coast, falling with depth and with
+    distance from the coast."""
+    current, wind, _, x, y, depths, times = oil_forcing(**kw)
+    nt, nz, ny, nx = current["x_sea_water_velocity"].shape
+    coast = nx - max(2, COAST_CELLS * nx // 200)
+    off = np.clip(coast - np.arange(nx), 0, None)       # cells off the coast
+    spm = 1.0 + 19.0 * np.exp(-depths / 15.0)[:, None, None] \
+        * np.exp(-off / (0.25 * nx))[None, None, :]
+    current["spm"] = np.ascontiguousarray(np.broadcast_to(
+        spm[None], (nt, nz, ny, nx))).astype(np.float32)
+    return current, wind, x, y, depths, times
+
+
+def chemistry_simulation(cls, device, n, seed=0, forcing_kw=None):
+    """A ``cls`` run of ``n`` elements on :func:`chemistry_forcing`, 60 s
+    mixing substeps, seeded over the top 10 m in the middle of the grid;
+    returns the simulation and the seeding's keyword arguments."""
+    from opendrift_tpu_torch.fields import ArrayReader
+    current, wind, x, y, depths, times = chemistry_forcing(
+        **(forcing_kw or {}))
+    o = cls(loglevel=40, device=device, seed=seed)
+    o.add_reader(ArrayReader(current, x, y, times, depths=depths,
+                             name="ocean"))
+    o.add_reader(ArrayReader(wind, x, y, times, name="wind"))
+    o.set_config("vertical_mixing:timestep", 60.0)
+    r = np.random.default_rng(seed + 1)
+    lon = r.uniform(float(x[len(x) // 4]), float(x[3 * len(x) // 4]), n)
+    lat = r.uniform(float(y[len(y) // 4]), float(y[3 * len(y) // 4]), n)
+    return o, dict(lon=lon, lat=lat, z=-r.uniform(0.0, CHEM_SEED_DEPTH, n),
+                   number=n, time=times[0])
+
+
+def chemical_simulation(device, n, seed=0, forcing_kw=None):
+    """A chemical-fate user's ChemicalDrift run: the 'organics' setup with
+    the Phenanthrene preset, degradation and volatilization on, dt =
+    1800 s (the chemical_stat golden's), 30 mixing substeps a step through
+    OceanDrift's generic loop (the model overrides the substep hooks)."""
+    from opendrift_tpu_torch.models import ChemicalDrift
+    o, seed_kw = chemistry_simulation(ChemicalDrift, device, n, seed,
+                                      forcing_kw)
+    o.init_chemical_compound("Phenanthrene")
+    o.set_config("chemical:transformations:degradation", True)
+    o.set_config("chemical:transformations:volatilization", True)
+    np.random.seed(seed)        # the SPM diameters come from numpy's global
+    o.seed_elements(**seed_kw)
+    return o
+
+
+def radionuclide_simulation(device, n, seed=0, forcing_kw=None):
+    """RadionuclideDrift with its defaults (137Cs, 'LMM + Rev', the
+    suspended-matter concentration ``conc3`` from the fallback) on the
+    same forcing, released at the seafloor (``seed:seafloor``), as from
+    waste dumped on the seabed: sorption to the sediment runs."""
+    from opendrift_tpu_torch.models import RadionuclideDrift
+    o, seed_kw = chemistry_simulation(RadionuclideDrift, device, n, seed,
+                                      forcing_kw)
+    o.set_config("seed:seafloor", True)
+    o.seed_elements(**seed_kw)
+    return o
+
+
+def run_chemistry(o, intervals, dt=CHEM_DT):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=dt * 10 * intervals), time_step=dt,
+          time_step_output=dt * 10, export_variables=CHEM_EXPORT)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def occupation(o):
+    """Elements of each specie among the valid ones at the last output."""
+    from opendrift_tpu_torch.export.io_netcdf import valid_mask
+    valid = valid_mask(np.asarray(o.result["status"].values), 0)[:, -1]
+    sp = np.asarray(o.result["specie"].values)[valid, -1]
+    return {name: int((sp == i).sum())
+            for i, name in enumerate(o.name_species)}
+
+
+def check_chemistry_result(o, n, frames, mass=True):
+    """Nothing valid is NaN, every specie lies in [0, S), elements of a
+    sediment specie are frozen at the seafloor, and (``mass``) each
+    element's mass closes: mass + degraded + volatilized equals what was
+    seeded.  Returns the numbers it logs."""
+    from opendrift_tpu_torch.export.io_netcdf import valid_mask
+    res = o.result
+    status = np.asarray(res["status"].values)
+    assert status.shape == (n, frames), status.shape
+    valid = valid_mask(status, 0)
+    names = [v for v in CHEM_EXPORT if v in res and v != "status"]
+    if not mass:
+        names = [v for v in names if not v.startswith("mass")]
+    for var in names:
+        vals = np.asarray(res[var].values)
+        if not np.isfinite(vals[valid]).all():
+            raise AssertionError(f"{type(o).__name__}: non-finite {var}")
+    sp = np.asarray(res["specie"].values)
+    S = o.nspecies
+    if not ((sp[valid] >= 0) & (sp[valid] < S)).all():
+        raise AssertionError(f"a specie outside [0, {S})")
+    last = status[:, -1] == 0
+    sed = np.zeros(n, bool)
+    for i, name in enumerate(o.name_species):
+        if name.startswith("Sediment"):
+            sed |= last & (sp[:, -1] == i)
+    moving = np.asarray(res["moving"].values)[:, -1]
+    if (moving[sed] != 0).any():
+        raise AssertionError("a sedimented element is moving")
+    lon = np.asarray(res["lon"].values)[sed, -1]
+    lat = np.asarray(res["lat"].values)[sed, -1]
+    z = np.asarray(res["z"].values)[sed, -1]
+    seafloor_err = 0.0
+    if sed.any():
+        when = np.datetime64(res.coords["time"][-1], "us").astype(datetime)
+        depth = o.env.readers["ocean"].sample_at(
+            lon, lat, when, ["sea_floor_depth_below_sea_level"],
+            device=o.device)["sea_floor_depth_below_sea_level"]
+        seafloor_err = float(np.abs(z + depth).max())
+        if seafloor_err > SEAFLOOR_ATOL:
+            raise AssertionError(f"sedimented elements {seafloor_err} m "
+                                 "off the seafloor")
+    out = {"sedimented": int(sed.sum()), "seafloor_max_err_m": seafloor_err,
+           "active_share": float(last.mean()),
+           "stranded_share": float((status[:, -1] == o.status_categories
+                                    .index("stranded")).mean())}
+    if mass:
+        total = sum(np.asarray(res[v].values, np.float64)
+                    for v in ("mass", "mass_degraded", "mass_volatilized"))
+        rel = np.abs(total - total[:, :1]) / total[:, :1]
+        err = float(rel[valid].max())
+        if err > CHEM_MASS_RTOL:
+            raise AssertionError(f"an element's mass budget is off by {err}")
+        out["mass_budget_max_rel_err"] = err
+        out["mass_degraded_share"] = float(
+            np.nansum(res["mass_degraded"].values[:, -1])
+            / np.nansum(total[:, 0]))
+        out["mass_volatilized_share"] = float(
+            np.nansum(res["mass_volatilized"].values[:, -1])
+            / np.nansum(total[:, 0]))
+    return out
+
+
+def no_mixing_kernel(name):
+    launched = {k.__name__: k.launches for k in mixing_kernels()}
+    if any(launched.values()):
+        raise AssertionError(f"{name} launched mixing kernels {launched}")
+    return launched
+
+
+def chemical_path(workdir, n=2_000_000, intervals=3):
+    """ChemicalDrift at full width: one untimed interval, then the timed
+    run of ``intervals`` intervals of 10 steps, which must launch no mixing
+    kernel; then a profiled interval and one density map of the result.
+    Returns the run's numbers."""
+    import torch
+    o = chemical_simulation("cuda", n)
+    run_chemistry(o, 1)
+    first = n * 10 / (o.timers["main loop"]
+                      - o.timers.get("main loop:readers", 0.0))
+    del o
+    o = chemical_simulation("cuda", n)
+    for k in mixing_kernels():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs = run_chemistry(o, intervals)
+    launched = no_mixing_kernel("chemical_path")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    checks = check_chemistry_result(o, n, intervals + 1)
+    stats = run_stats(o, n, 10 * intervals, secs)
+    stats["particle_steps_per_s_steps_only_untimed_interval"] = first
+    path = os.path.join(workdir, "chemical_density.nc")
+    t = time.perf_counter()
+    o.write_netcdf_chemical_density_map(path, pixelsize_m=1000.0,
+                                        zlevels=(-20.0, -10.0, -5.0))
+    density_s = time.perf_counter() - t
+    log("chemical_path", compound=o.get_config("chemical:compound"),
+        substeps=int(CHEM_DT / 60.0), launches=launched,
+        occupation_seed=dict(zip(o.name_species, np.bincount(
+            o._seedings[0]["specie"], minlength=o.nspecies).tolist())),
+        occupation_end=occupation(o), peak_mem_gb=peak,
+        density_map_s=density_s,
+        density_map_mb=os.path.getsize(path) / 1e6, **checks, **stats)
+    os.remove(path)
+    profile_interval(o, phase="chemical_profile", dt=CHEM_DT)
+    return stats
+
+
+def radionuclide_path(n=2_000_000):
+    """RadionuclideDrift (137Cs) at full width: one untimed interval, then
+    one timed, which must launch no mixing kernel."""
+    import torch
+    o = radionuclide_simulation("cuda", n)
+    run_chemistry(o, 1)
+    del o
+    o = radionuclide_simulation("cuda", n)
+    for k in mixing_kernels():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs = run_chemistry(o, 1)
+    launched = no_mixing_kernel("radionuclide_path")
+    checks = check_chemistry_result(o, n, 2, mass=False)
+    log("radionuclide_path", isotope=o.get_config("radionuclide:isotope"),
+        launches=launched, occupation_end=occupation(o),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **checks,
+        **run_stats(o, n, 10, secs))
+
+
+EULER_SIZE = 1000           # cells a side, of 100 m
+EULER_STEPS = 100
+EULER_RTOL = 1e-5           # of the field's maximum, card against CPU
+EULER_MASS_RTOL = 1e-4
+
+
+def euler_simulation(device, size=EULER_SIZE):
+    """``ExplSimulation`` on a size x size grid of 100 m cells off western
+    Norway, D = 5 m2/s, a constant current of (0.3, 0.1) m/s, a Gaussian
+    source (sigma 1 km) a third of the way in."""
+    from opendrift_tpu_torch.models import eulerdrift
+    s = eulerdrift.ExplSimulation.new(lon0=4.0, lat0=60.0, res=100.0,
+                                      shape=(size, size), D=5.0,
+                                      device=device)
+    s.readers.append(eulerdrift.ConstantReader.new_xy(x=0.3, y=0.1))
+    lon, lat = s.grid.crs.inv(np, s.grid.x[size // 3], s.grid.y[size // 3])
+    s.grid.source_gaussian_blob(float(lon), float(lat), A=1.0, N=61,
+                                sigma=1000.0)
+    return s
+
+
+def euler_field(size=EULER_SIZE, steps=EULER_STEPS, dt=60.0):
+    """The Eulerian solver on the card and on the CPU at the same size:
+    the fields agree to ``EULER_RTOL`` of the maximum, and each keeps its
+    mass; the device seconds of one stencil step are timed with CUDA
+    events on the card's field."""
+    import torch
+    from opendrift_tpu_torch.models import eulerdrift
+    fields, masses, walls = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for device in ("cuda", "cpu"):
+        s = euler_simulation(device, size)
+        m0 = s.grid.total_mass()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.integrate(dt=dt, max_steps=steps)
+        torch.cuda.synchronize()
+        walls[device] = time.perf_counter() - t
+        masses[device] = abs(s.grid.total_mass() - m0) / m0
+        fields[device] = s.grid.field.cpu().numpy()
+        if device == "cuda":
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            c = s.grid.field
+            u = torch.full_like(c, 0.3)
+            v = torch.full_like(c, 0.1)
+            eulerdrift._step_kernel(c, u, v, s.D, s.grid.res, dt)   # warm
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                c = eulerdrift._step_kernel(c, u, v, s.D, s.grid.res, dt)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = start.elapsed_time(end) / steps
+        del s
+    err = float(np.abs(fields["cuda"].astype(np.float64)
+                       - fields["cpu"]).max())
+    scale = float(np.abs(fields["cpu"]).max())
+    if not np.isfinite(fields["cuda"]).all() or err > EULER_RTOL * scale:
+        raise AssertionError(f"euler field: card against CPU {err} "
+                             f"(max {scale})")
+    if max(masses.values()) > EULER_MASS_RTOL:
+        raise AssertionError(f"euler field: mass changed by {masses}")
+    log("euler_field", shape=[size, size], res_m=100.0, steps=steps,
+        max_abs_err=err, field_max=scale, rel_err=err / scale,
+        mass_rel_change=masses, integrate_s=walls,
+        device_ms_per_step=step_ms,
+        cells_per_s=size * size / (step_ms * 1e-3), peak_mem_gb=peak)
+
+
+FTLE_DELTA = 0.001          # 2000 x 1000 seeds over the 2 x 1 gyre
+FTLE_SMALL_DELTA = 0.01     # 200 x 100 seeds, card against CPU
+FTLE_ATOL = 1e-3            # 1/s, card against CPU where both are finite
+FTLE_SHARE = 0.01           # of the cells beyond 1e-4
+
+
+def ftle_fields(device, delta):
+    """``calculate_ftle`` of OceanDrift (RK4) on the double gyre, forward
+    (RLCS) and backward (ALCS), 8 s in steps of 0.2 s: an LCS user's
+    job."""
+    from opendrift_tpu_torch.models import OceanDrift
+    from opendrift_tpu_torch.fields import DoubleGyre
+    o = OceanDrift(loglevel=40, device=device)
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("drift:advection_scheme", "runge-kutta4")
+    o.set_config("drift:vertical_advection", False)
+    dg = DoubleGyre(epsilon=0.25, omega=0.628, A=0.1)
+    o.add_reader(dg)
+    return o.calculate_ftle(reader=dg, delta=delta,
+                            domain=[0.0, 2.0, 0.0, 1.0],
+                            time=dg.initial_time, time_step=0.2,
+                            duration=timedelta(seconds=8))
+
+
+def ftle_path():
+    """FTLE at about 2M seeds on the card (forward and backward runs), then
+    the same at 20,000 seeds on the card and on the CPU, held together."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    big = ftle_fields("cuda", FTLE_DELTA)
+    secs = time.perf_counter() - t
+    shape = big["RLCS"][0].shape
+    out = {}
+    for name in ("RLCS", "ALCS"):
+        f = big[name][0]
+        finite = float(np.isfinite(f).mean())
+        if finite < 0.99 or not np.nanmax(f) > 3 * np.nanmedian(np.abs(f)):
+            raise AssertionError(f"{name} at {shape}: finite share {finite},"
+                                 f" max {np.nanmax(f)}")
+        out[name] = {"finite_share": finite, "max": float(np.nanmax(f)),
+                     "median": float(np.nanmedian(f))}
+    log("ftle_path", seeds=int(np.prod(shape)), shape=list(shape),
+        run_s=secs, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **out)
+    del big
+    card = ftle_fields("cuda", FTLE_SMALL_DELTA)
+    cpu = ftle_fields("cpu", FTLE_SMALL_DELTA)
+    errs = {}
+    for name in ("RLCS", "ALCS"):
+        a, b = card[name][0], cpu[name][0]
+        ok = np.isfinite(a) & np.isfinite(b)
+        d = np.abs(a[ok] - b[ok])
+        errs[name] = {"max_abs_err": float(d.max()),
+                      "share_beyond_1e-4": float((d > 1e-4).mean()),
+                      "finite_equal": bool(np.array_equal(np.isfinite(a),
+                                                          np.isfinite(b)))}
+        if d.max() > FTLE_ATOL or (d > 1e-4).mean() > FTLE_SHARE:
+            raise AssertionError(f"ftle {name}: card against CPU {errs}")
+    log("ftle_card_vs_cpu", seeds=int(np.prod(card["RLCS"][0].shape)),
+        **errs)
+
+
 def zoo_run(name, device, n, seed=0, steps=10, intervals=2):
     """Configuration ``name`` of ``opendrift_tpu_torch/tools/
     zoo_setups.py`` at ``n`` elements, ``intervals`` output intervals of
@@ -2113,23 +2498,31 @@ def zoo_run(name, device, n, seed=0, steps=10, intervals=2):
 
 
 def zoo_card_against_cpu(n=ZOO_N):
-    """Each of the eleven new classes on the card and on the CPU from one
-    seed, under the constant fallbacks of its golden: statuses equal but
-    for the share where an ulp may decide, lon/lat/z within the slice
-    tolerance; then ShipDrift's peak memory and OpenBerg's step time at
-    2M elements."""
+    """Each class of the zoo on the card and on the CPU from one seed,
+    under the constant fallbacks of its golden (or its JAX test's): lon/lat/z
+    within the slice tolerance, statuses equal but for the share where an
+    ulp may decide (the chemistry slice's configurations: every status
+    equal, species equal but for ``SPECIATION_SHARE``); then ShipDrift's
+    peak memory and OpenBerg's step time at 2M elements."""
     import torch
     out = {}
-    for name in ZOO_CLASSES:
-        got = final_frame(zoo_run(name, "cuda", n))
-        want = final_frame(zoo_run(name, "cpu", n))
+    for name in ZOO_CLASSES + CHEM_ZOO:
+        card, cpu = zoo_run(name, "cuda", n), zoo_run(name, "cpu", n)
+        got, want = final_frame(card), final_frame(cpu)
+        chem = name in CHEM_ZOO
         status_diff, errs = hold_against(
             f"zoo {name}", got, want, SLICE_MEDIAN_ATOL, SLICE_OUTLIER_ATOL,
-            SLICE_OUTLIER_SHARE, STORAGE_STATUS_SHARE)
+            SLICE_OUTLIER_SHARE, 0.0 if chem else STORAGE_STATUS_SHARE)
+        extra = {}
+        if "specie" in card.result:
+            extra["specie_diff_share"] = float(np.mean(
+                card.result["specie"].values != cpu.result["specie"].values))
+            if extra["specie_diff_share"] > SPECIATION_SHARE:
+                raise AssertionError(f"zoo {name}: species differ {extra}")
         out[name] = errs
         log("zoo_card_vs_cpu", config=name, elements=n,
             status_diff_share=status_diff, max_abs_err=errs,
-            active_share=float((got["status"] == 0).mean()))
+            active_share=float((got["status"] == 0).mean()), **extra)
     big = 2_000_000
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2471,6 +2864,10 @@ def run_phases(kind, power, t, seconds, workdir):
     launches["visser_mixing_oil"], oil_stats = timed("oil_path", oil_path)
     plast_launches, plast_stats = timed("plast_path", plast_path)
     timed("leeway_path", leeway_path)
+    timed("chemical_path", chemical_path, workdir)
+    timed("radionuclide_path", radionuclide_path)
+    timed("euler_field", euler_field)
+    timed("ftle_path", ftle_path)
     for path, name, count, st in (
             ("main", "visser_mixing", launches["visser_mixing"], stats),
             ("oil", "visser_mixing_oil", launches["visser_mixing_oil"],

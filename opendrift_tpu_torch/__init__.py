@@ -10,8 +10,9 @@ The port grows one slice at a time (ROADMAP.md, queue A): so far an
 OceanDrift run on gridded forcing with Visser vertical mixing, the
 automatic coastline landmask and the polygon seeders, an OpenOil run
 (weathering, wave entrainment, stranding), the whole reader layer, the
-first ten models of the zoo (:func:`get_model_names`), and the result's
-round trip through :func:`open`.  The three mixing kernels are hand-written CUDA
+whole model zoo (:func:`get_model_names`) with the Eulerian solver
+(``models.eulerdrift``), the post-processing of a result (density maps,
+residence time, FTLE) and its round trip through :func:`open`.  The three mixing kernels are hand-written CUDA
 (``csrc/visser_mixing.cu``); the host NaN fill is C++ built with g++
 (``csrc/fieldpipe.cpp``).
 """
@@ -35,23 +36,24 @@ _MODEL_REGISTRY = {
     "LarvalFish": "opendrift_tpu_torch.models.larvalfish",
     "LarvalFishExtended": "opendrift_tpu_torch.models.larvalfish",
     "SeaLice": "opendrift_tpu_torch.models.sealice",
+    "RadionuclideDrift": "opendrift_tpu_torch.models.radionuclides",
+    "ChemicalDrift": "opendrift_tpu_torch.models.chemicaldrift",
+    "OpenHNS": "opendrift_tpu_torch.models.legacy",
+    "OpenBergOld": "opendrift_tpu_torch.models.legacy",
+    "ModelTemplate": "opendrift_tpu_torch.models.model_template",
 }
 
 
 def get_model_names():
-    """Names of the models the port provides so far."""
+    """Names of the models the port provides: every model of the JAX
+    package's zoo."""
     return list(_MODEL_REGISTRY)
 
 
 def get_model(model_name):
     """Import and return a model class by name
-    (reference opendrift/__init__.py:31-43); a model of the JAX package's
-    zoo that is still to be ported raises ``NotImplementedError`` naming
-    ROADMAP item A.12b."""
+    (reference opendrift/__init__.py:31-43)."""
     if model_name not in _MODEL_REGISTRY:
-        from .models import NOT_YET_PORTED, not_yet_ported
-        if model_name in NOT_YET_PORTED:
-            raise not_yet_ported(model_name)
         raise ValueError(
             f"No drift model named {model_name}; "
             f"available: {list(_MODEL_REGISTRY)}")

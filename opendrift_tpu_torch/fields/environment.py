@@ -291,8 +291,9 @@ class Environment:
         observations, the input of wind-drift-factor calibration
         (reference environment.py:925-941).  Needs :meth:`finalize` first.
         One window covers every time; each observation is sampled at its
-        own time on this environment's device.  Returns ``{'time': [...],
-        var: np.ndarray[N]}``."""
+        own time on this environment's device, those that share a time in
+        one call (a density map samples every pixel at one time).  Returns
+        ``{'time': [...], var: np.ndarray[N]}``."""
         if not getattr(self, "_plan", None):
             raise RuntimeError(
                 "Environment not finalized — call finalize() first")
@@ -308,17 +309,18 @@ class Environment:
         latv = torch.as_tensor(np.asarray(lats, np.float32),
                                device=self.device)
         zv = torch.full_like(lonv, float(z))
-        series = {v: [] for v in variables}
-        for i, t in enumerate(times):
-            trel = np.float32((t - epoch).total_seconds())
-            sl = slice(i, i + 1)
-            env, _ = self.get_environment(dev_states, variables, trel,
-                                          lonv[sl], latv[sl], zv[sl])
-            for v in variables:
-                series[v].append(env[v])
+        trel = np.array([(t - epoch).total_seconds() for t in times],
+                        np.float32)
         result = {"time": list(times)}
         for v in variables:
-            result[v] = torch.cat(series[v]).cpu().numpy()
+            result[v] = np.empty(len(times), np.float32)
+        for t in np.unique(trel):
+            at = np.nonzero(trel == t)[0]
+            sel = torch.as_tensor(at, device=self.device)
+            env, _ = self.get_environment(dev_states, variables, t,
+                                          lonv[sel], latv[sel], zv[sel])
+            for v in variables:
+                result[v][at] = env[v].cpu().numpy()
         return result
 
     def uv_block_plan_index(self):

@@ -11,20 +11,14 @@ from .openoil import OpenOil  # noqa: F401
 from .openberg import OpenBerg  # noqa: F401
 from .larvalfish import LarvalFish, LarvalFishExtended  # noqa: F401
 from .sealice import SeaLice  # noqa: F401
+from .radionuclides import RadionuclideDrift  # noqa: F401
+from .chemicaldrift import ChemicalDrift  # noqa: F401
+from .legacy import OpenHNS, OpenBergOld  # noqa: F401
+from .model_template import ModelTemplate  # noqa: F401
 
-# the rest of the JAX package's zoo, still to be ported (ROADMAP A.12b):
-# asking for one raises and names the item
-NOT_YET_PORTED = ("RadionuclideDrift", "ChemicalDrift", "OpenHNS",
-                  "OpenBergOld", "ModelTemplate", "eulerdrift")
-
-
-def not_yet_ported(name):
-    return NotImplementedError(
-        f"{name} is not ported yet (ROADMAP A.12b: radionuclides, "
-        "chemicaldrift, eulerdrift, legacy and model_template)")
-
-
-def __getattr__(name):
-    if name in NOT_YET_PORTED:
-        raise not_yet_ported(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["OpenDriftSimulation", "Mode", "StepContext", "OceanDrift",
+           "Lagrangian3DArray", "WindBlow", "SeaIceDrift",
+           "PelagicEggDrift", "PlastDrift", "SedimentDrift", "Leeway",
+           "ShipDrift", "OpenOil", "OpenBerg", "LarvalFish",
+           "LarvalFishExtended", "SeaLice", "RadionuclideDrift",
+           "ChemicalDrift", "OpenHNS", "OpenBergOld", "ModelTemplate"]

@@ -18,9 +18,10 @@ matches upstream; the internals follow the JAX package:
   with threefry bit-equal to the JAX package's (``rng.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card a CUDA request raises.  Deferred: domain decomposition,
-particle sharding and capacity padding (ROADMAP A.14), and the
-post-processing and plotting mixins (A.13).
+without a card a CUDA request raises.  The post-processing mixin (density
+maps, residence time, FTLE) is mixed in as in the JAX package.  Deferred:
+domain decomposition, particle sharding and capacity padding (ROADMAP
+A.14), and the plotting mixin (A.13).
 """
 
 import json
@@ -52,6 +53,7 @@ from ..utils.shapefile import points_in_ring, shapefile_polygons
 from ..utils.dataset import TrajectoryDataset, DataVar
 from ..utils.xp import tnp
 from .physics import PhysicsContext
+from .postprocess import PostProcessingMixin
 
 logger = logging.getLogger(__name__)
 
@@ -85,7 +87,7 @@ def _seconds(value):
     return float(value)
 
 
-class OpenDriftSimulation(Timeable, Configurable):
+class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
     """Abstract base simulation.  Subclasses define ``ElementType``,
     ``required_variables`` and ``update(ctx)``."""
 

@@ -69,6 +69,13 @@ def fold_in(key, data):
     return Key(*threefry2x32(key.k1, key.k2, 0, int(data) & _M32))
 
 
+def split(key, num=2):
+    """``jax.random.split``: under ``jax_threefry_partitionable`` the i-th
+    key is the hash of the counter pair (0, i), which is
+    ``fold_in(key, i)``."""
+    return tuple(fold_in(key, i) for i in range(num))
+
+
 def bits(key, shape=(), device=None):
     """``jax.random.bits(key, shape, dtype=uint32)``.  The empty shape
     returns a Python int; any other shape an int64 tensor of uint32

@@ -17,7 +17,9 @@ from datetime import datetime, timedelta
 import numpy as np
 
 # each golden's scalars (the npz files' ``config``); LarvalFishExtended has
-# no golden and runs LarvalFish's configuration with its own behaviour
+# no golden and runs LarvalFish's configuration with its own behaviour, and
+# the metals ChemicalDrift (the Copper preset), OpenHNS and ModelTemplate
+# have none and run the constant fallbacks of their JAX tests
 CONFIGS = {
     "windblow_euler": dict(model="WindBlow", wind_u=9.0, wind_v=-3.0,
                            time_step=900, duration_s=90000),
@@ -54,6 +56,26 @@ CONFIGS = {
     "sealice_stat": dict(model="SeaLice", u=0.05, sst=10.0, sss=34.0,
                          seafloor=80.0, seed_z=-5.0, time_step=1800,
                          duration_s=86400, time_step_output=3600),
+    "chemical_stat": dict(model="ChemicalDrift", compound="Phenanthrene",
+                          wind_u=5.0, u=0.05, sst=12.0, sss=34.0,
+                          seafloor=60.0, spm=5.0, seed_z=-5.0,
+                          time_step=1800, duration_s=43200,
+                          time_step_output=3600),
+    "radionuclide_stat": dict(model="RadionuclideDrift", u=0.05, sst=10.0,
+                              sss=34.0, seafloor=50.0, seed_z=-5.0,
+                              time_step=1800, duration_s=86400,
+                              time_step_output=3600, dt_mix=60.0),
+    "chemical_metals": dict(model="ChemicalDrift", compound="Copper",
+                            wind_u=5.0, u=0.3, sst=12.0, sss=30.0,
+                            seafloor=20.0, spm=20.0, seed_z=-5.0,
+                            time_step=1800, duration_s=43200,
+                            time_step_output=3600),
+    "hns_butyl": dict(model="OpenHNS", hns_type="butyl", u=0.2,
+                      wind_u=8.0, time_step=600, duration_s=21600,
+                      time_step_output=3600),
+    "model_template": dict(model="ModelTemplate", u=0.1, my_setting=2.0,
+                           time_step=600, duration_s=7200,
+                           time_step_output=600),
 }
 
 
@@ -213,6 +235,56 @@ def setup(name, cfg, device):
         o.seed_elements(lon=np.full(n, 4.0), lat=np.full(n, 60.0),
                         z=np.full(n, cfg["seed_z"]),
                         time=datetime(2021, 6, 1, 0))
+    elif name in ("chemical_stat", "chemical_metals"):
+        o = M.ChemicalDrift(loglevel=40, device=device)
+        o.set_config("environment:fallback:land_binary_mask", 0)
+        for k, v in (("x_wind", cfg["wind_u"]), ("y_wind", 0.0),
+                     ("x_sea_water_velocity", cfg["u"]),
+                     ("y_sea_water_velocity", 0.0),
+                     ("sea_water_temperature", cfg["sst"]),
+                     ("sea_water_salinity", cfg["sss"]),
+                     ("sea_floor_depth_below_sea_level", cfg["seafloor"]),
+                     ("spm", cfg["spm"])):
+            o.set_config(f"environment:fallback:{k}", v)
+        o.set_config("chemical:transformations:degradation", True)
+        o.set_config("chemical:transformations:volatilization", True)
+        o.init_chemical_compound(cfg["compound"])
+        # the SPM diameters come from numpy's global generator, as in the
+        # JAX package: seeded here so that runs on two devices are equal
+        np.random.seed(0)
+        o.seed_elements(lon=np.full(n, 4.0), lat=np.full(n, 60.0),
+                        z=np.full(n, cfg["seed_z"]),
+                        time=datetime(2021, 4, 1))
+    elif name == "radionuclide_stat":
+        o = M.RadionuclideDrift(loglevel=40, device=device)
+        o.set_config("environment:fallback:land_binary_mask", 0)
+        _set_fallbacks(o, {"x_sea_water_velocity": cfg["u"],
+                           "y_sea_water_velocity": 0.0,
+                           "sea_water_temperature": cfg["sst"],
+                           "sea_water_salinity": cfg["sss"],
+                           "sea_floor_depth_below_sea_level":
+                               cfg["seafloor"]})
+        o.set_config("vertical_mixing:timestep", cfg["dt_mix"])
+        o.seed_elements(lon=np.full(n, 4.0), lat=np.full(n, 60.0),
+                        z=np.full(n, cfg["seed_z"]),
+                        time=datetime(2021, 4, 1))
+    elif name == "hns_butyl":
+        o = M.OpenHNS(loglevel=40, device=device)
+        _set_fallbacks(o, {"x_sea_water_velocity": cfg["u"],
+                           "y_sea_water_velocity": 0.0,
+                           "x_wind": cfg["wind_u"], "y_wind": 0.0,
+                           "land_binary_mask": 0})
+        o.seed_elements(lon=4.0, lat=60.0, radius=1000.0, number=n,
+                        time=datetime(2020, 1, 1),
+                        hns_type=cfg["hns_type"])
+    elif name == "model_template":
+        o = M.ModelTemplate(loglevel=40, device=device)
+        _set_fallbacks(o, {"x_sea_water_velocity": cfg["u"],
+                           "y_sea_water_velocity": 0.0,
+                           "land_binary_mask": 0})
+        o.set_config("template:my_setting", cfg["my_setting"])
+        o.seed_elements(lon=4.0, lat=60.0, radius=1000.0, number=n,
+                        time=datetime(2020, 1, 1), my_property=1.0)
     else:
         raise ValueError(f"no zoo configuration named {name}")
     return o, _run_kwargs(cfg)

@@ -541,3 +541,66 @@ def test_gather_route_of_a_view_on_the_card(offset, route):
     torch.cuda.synchronize()
     assert gather.gather_route(96, table.data_ptr(), got.data_ptr()) == route
     assert gather_ab.bit_equal(got, want)
+
+
+# ------------------------------------------------------ the chemistry slice --
+
+@pytest.mark.gpu
+def test_speciation_step_on_the_card_matches_the_cpu():
+    """The speciation step on the card draws the CPU's uniforms to the bit;
+    the destinations agree but where ``exp`` of the two devices rounds a
+    probability across a uniform (tests/test_torch_chemistry.py's
+    ``SPECIATION_SHARE``, 1%)."""
+    _card()
+    from opendrift_tpu_torch import rng
+    from opendrift_tpu_torch.ops.speciation import speciation_step
+    r = np.random.default_rng(0)
+    n, S = 200_003, 5
+    specie = torch.as_tensor(r.integers(0, S, n).astype(np.int32))
+    rates = torch.as_tensor((10.0 ** r.uniform(-7, -3, (n, S))).astype(
+        np.float32))
+    active = torch.as_tensor(r.random(n) < 0.95)
+    key = rng.fold_in(rng.PRNGKey(7), 3)
+    got = speciation_step(specie.cuda(), rates.cuda(), 1800.0, key,
+                          active.cuda())
+    want = speciation_step(specie, rates, 1800.0, key, active)
+    for a, b in zip(got, want):
+        assert np.mean(a.cpu().numpy() != b.numpy()) <= 0.01
+    assert got[0].dtype == torch.int32 and got[1].any()
+
+
+@pytest.mark.gpu
+def test_chemicaldrift_run_on_the_card_matches_the_cpu():
+    """A small ChemicalDrift run (Phenanthrene, degradation and
+    volatilization) on the card and on the CPU from one seed: statuses
+    equal, positions within the slice tolerance, species equal but for 1%,
+    no mixing kernel launched (the generic per-substep loop), and each
+    element's mass kept."""
+    _card()
+    from opendrift_tpu_torch.tools import zoo_setups
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    before = [k.launches for k in kernels]
+    runs = []
+    for device in ("cuda", "cpu"):
+        cfg = zoo_setups.config("chemical_stat", 2000)
+        cfg["duration_s"] = 6 * cfg["time_step"]
+        o, run_kw = zoo_setups.setup("chemical_stat", cfg, device)
+        o.run(**run_kw)
+        runs.append(o.result)
+    assert [k.launches for k in kernels] == before
+    card, cpu = runs
+    np.testing.assert_array_equal(card["status"].values,
+                                  cpu["status"].values)
+    bounds = {"lon": (1e-6, 1e-4), "lat": (1e-6, 1e-4), "z": (1e-4, 0.1)}
+    for var, (median_atol, outlier_atol) in bounds.items():
+        a = np.asarray(card[var].values, np.float64)
+        b = np.asarray(cpu[var].values, np.float64)
+        d = np.abs(a - b)[~np.isnan(b)]
+        assert np.median(d) <= median_atol and np.mean(
+            d > outlier_atol) <= 0.02, (var, d.max())
+    assert np.mean(card["specie"].values != cpu["specie"].values) <= 0.01
+    total = sum(np.asarray(card[v].values, np.float64)
+                for v in ("mass", "mass_degraded", "mass_volatilized"))
+    np.testing.assert_allclose(total, np.broadcast_to(total[:, :1],
+                                                      total.shape), rtol=1e-4)

@@ -111,6 +111,55 @@ def test_the_zoo_slice_is_covered():
             assert a.read() == b.read(), table
 
 
+def test_the_chemistry_slice_is_covered():
+    """The rest of the zoo and the post-processing are among the sources
+    checked above (and so import neither JAX nor the JAX package), and the
+    port carries its own byte copies of the compound and emission-factor
+    tables."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("models/radionuclides.py", "models/chemicaldrift.py",
+                 "models/legacy.py", "models/model_template.py",
+                 "models/eulerdrift.py", "models/postprocess.py",
+                 "ops/speciation.py", "ops/lcs.py", "utils/trajectory.py"):
+        assert name in have, name
+    for table in ("chemical_compounds.json",
+                  "chemical_emission_factors.json"):
+        with open(os.path.join(PORT, "models", table), "rb") as a, \
+                open(os.path.join(REPO, "opendrift_tpu", "models", table),
+                     "rb") as b:
+            assert a.read() == b.read(), table
+
+
+def test_chemicaldrift_seeds_from_datetime64_without_pandas():
+    """pandas is not on the card machine: with it unimportable,
+    ChemicalDrift imports and seeds from a discharge field whose times are
+    ``datetime64``."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'opendrift_tpu', 'pandas'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from datetime import datetime\n"
+        "from opendrift_tpu_torch.models import ChemicalDrift\n"
+        "o = ChemicalDrift(loglevel=40, device='cpu')\n"
+        "data = np.zeros((2, 2, 2)); data[1, 0, 1] = 3.0\n"
+        "times = np.array(['2021-04-01T00', '2021-04-01T06'],\n"
+        "                 dtype='datetime64[ns]')\n"
+        "o.seed_from_DataArray(data, longitude=[4.0, 4.1],\n"
+        "                      latitude=[60.0, 60.1], time=times,\n"
+        "                      chemical_compound='Copper',\n"
+        "                      mass_element_ug=1e6)\n"
+        "t = o._seedings[0]['time']\n"
+        "t = t[0] if hasattr(t, '__len__') else t\n"
+        "assert t == datetime(2021, 4, 1, 6), t\n"
+        "print(len(o._seedings[0]['lon']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 0
+
+
 def test_mesh_sampler_builds_without_matplotlib(monkeypatch):
     """matplotlib is not on the card machine: with it unimportable the
     port still builds a MeshSampler (its own rasteriser), and its tables

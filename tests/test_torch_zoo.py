@@ -1,8 +1,11 @@
-"""The model zoo's first ten models of ``opendrift_tpu_torch`` (WindBlow,
-SeaIceDrift, Leeway, PlastDrift, SedimentDrift, PelagicEggDrift,
-LarvalFish and LarvalFishExtended, OpenBerg, ShipDrift, SeaLice) on the
-CPU: each against the JAX package on the same seeded inputs, each against
-its reference golden, and the physics and RNG functions they brought.
+"""The model zoo of ``opendrift_tpu_torch`` on the CPU: the first ten
+models (WindBlow, SeaIceDrift, Leeway, PlastDrift, SedimentDrift,
+PelagicEggDrift, LarvalFish and LarvalFishExtended, OpenBerg, ShipDrift,
+SeaLice), each against the JAX package on the same seeded inputs and
+against its reference golden, with the physics and RNG functions they
+brought; then the legacy models (OpenHNS, OpenBergOld) and ModelTemplate
+against the JAX package, and the registry of the whole zoo.  The
+chemistry models have their own file (tests/test_torch_chemistry.py).
 
 Tolerances.  Runs against the JAX package (64 elements, 3D models on an
 ``ArrayReader`` ocean as tests/test_torch_oceandrift.py runs OceanDrift):
@@ -533,19 +536,117 @@ def test_ml_correction_matches_jax():
 
 
 def test_get_model_names_the_zoo():
+    """Every model of the JAX package's registry resolves to the port's
+    class, ``eulerdrift`` imports, and what is still to come are the plots
+    (A.13), which raise naming their item."""
+    import opendrift_tpu
     import opendrift_tpu_torch
+    from opendrift_tpu_torch.models import eulerdrift
     names = opendrift_tpu_torch.get_model_names()
-    for name in ("WindBlow", "SeaIceDrift", "Leeway", "PlastDrift",
-                 "SedimentDrift", "PelagicEggDrift", "LarvalFish",
-                 "LarvalFishExtended", "OpenBerg", "ShipDrift", "SeaLice"):
-        assert name in names
+    assert set(names) == set(opendrift_tpu.get_model_names())
+    for name in names:
         cls = opendrift_tpu_torch.get_model(name)
+        assert cls.__name__ == name
         assert cls.__module__.startswith("opendrift_tpu_torch.models")
     for name in ("RadionuclideDrift", "ChemicalDrift", "OpenHNS",
                  "OpenBergOld", "ModelTemplate"):
-        with pytest.raises(NotImplementedError, match="A.12b"):
-            opendrift_tpu_torch.get_model(name)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        from opendrift_tpu_torch.models import eulerdrift  # noqa: F401
+        assert name in names
+    assert eulerdrift.ExplSimulation.__module__ == \
+        "opendrift_tpu_torch.models.eulerdrift"
+    o = opendrift_tpu_torch.get_model("ChemicalDrift")(loglevel=40,
+                                                       device="cpu")
+    grid = eulerdrift.EulerGrid.new(shape=(8, 8), device="cpu")
+    for stub in (o.plot_mass, grid.plot, lambda: o.write_geotiff("x.tif")):
+        with pytest.raises(NotImplementedError, match="A.13"):
+            stub()
     with pytest.raises(ValueError):
         opendrift_tpu_torch.get_model("NoSuchModel")
+
+
+# ------------------------------------------- legacy models and the template --
+
+def _legacy_run(pkg, name, hns_type="butyl"):
+    if pkg == "jax":
+        import opendrift_tpu.models as M
+        from opendrift_tpu.fields.analytic import ConstantReader
+        kw = {}
+    else:
+        import opendrift_tpu_torch.models as M
+        from opendrift_tpu_torch.fields.analytic import ConstantReader
+        kw = {"device": "cpu"}
+    o = getattr(M, name)(loglevel=50, **kw)
+    o.add_reader(ConstantReader({
+        "x_sea_water_velocity": 0.2, "y_sea_water_velocity": 0.05,
+        "x_wind": 8.0, "y_wind": -2.0}))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    seed = {}
+    if name == "OpenHNS":
+        seed["hns_type"] = hns_type
+    else:
+        o.set_config("template:my_setting", 2.0)
+        seed["my_property"] = np.linspace(0.0, 1.0, 200)
+    o.seed_elements(lon=4.0, lat=60.0, radius=2000.0, time=T0, number=200,
+                    **seed)
+    o.run(duration=timedelta(hours=6), time_step=600, time_step_output=3600)
+    return o
+
+
+@pytest.mark.parametrize("hns_type", ["butyl", "acetone", "xylene"])
+def test_openhns_matches_jax(hns_type):
+    """OpenHNS's two Bernoulli uniforms a step are bit-equal to the JAX
+    package's: every phase change, mass and position agrees, and mass is
+    kept (tests/test_legacy_template.py)."""
+    oj = _legacy_run("jax", "OpenHNS", hns_type)
+    ot = _legacy_run("torch", "OpenHNS", hns_type)
+    for var in ("mass", "mass_evaporated", "mass_dissolved",
+                "wind_drift_factor", "z", "status"):
+        np.testing.assert_array_equal(ot.result[var].values,
+                                      np.asarray(oj.result[var].values),
+                                      err_msg=var)
+    for var in ("lon", "lat"):
+        _assert_close(ot.result[var].values, oj.result[var].values, var,
+                      MEDIAN_ATOL[var], OUTLIER_ATOL[var])
+    me, md, mm = (np.asarray(ot.result[v].values)[:, -1]
+                  for v in ("mass_evaporated", "mass_dissolved", "mass"))
+    assert np.allclose(me + md + mm, 1.0) and (me > 0).any()
+    z = np.asarray(ot.result["z"].values)[:, -1]
+    assert np.all(z[me > 0] == 10.0) and np.all(z[md > 0] <= -10.0)
+
+
+def test_model_template_matches_jax():
+    oj = _legacy_run("jax", "ModelTemplate")
+    ot = _legacy_run("torch", "ModelTemplate")
+    np.testing.assert_allclose(ot.result["my_property"].values,
+                               np.asarray(oj.result["my_property"].values),
+                               rtol=1e-6)
+    np.testing.assert_allclose(
+        ot.result["my_property"].values[:, -1],
+        np.linspace(0.0, 1.0, 200) + 12.0, rtol=1e-6)   # rate 2 a h, 6 h
+    for var in ("lon", "lat"):
+        _assert_close(ot.result[var].values, oj.result[var].values, var,
+                      MEDIAN_ATOL[var], OUTLIER_ATOL[var])
+    assert not ot.get_config("drift:vertical_mixing")
+
+
+def test_openberg_old_is_a_deprecated_openberg():
+    from opendrift_tpu_torch.models import OpenBerg, OpenBergOld
+    with pytest.warns(DeprecationWarning):
+        o = OpenBergOld(loglevel=50, device="cpu")
+    assert isinstance(o, OpenBerg) and o.device.type == "cpu"
+
+
+def test_gls_tke_matches_jax():
+    from opendrift_tpu.models.legacy import gls_tke as jgls
+    from opendrift_tpu_torch.models.legacy import gls_tke
+    r = np.random.default_rng(5)
+    args = (r.uniform(0.01, 0.5, 300).astype(np.float32), np.arange(12.0),
+            r.uniform(1020, 1028, 300).astype(np.float32),
+            r.uniform(1e-6, 1e-3, 300).astype(np.float32),
+            r.uniform(1e-8, 1e-5, 300).astype(np.float32))
+    params = {"gls_p": 3.0, "gls_m": 1.5, "gls_n": -1.0, "gls_cmu0": 0.5477}
+    for p in (None, params):
+        got = gls_tke(*[torch.as_tensor(a) for a in args],
+                      gls_parameters=p)
+        want = np.asarray(jgls(*args, gls_parameters=p))
+        assert got.shape == want.shape == (12, 300)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-6)
