@@ -124,6 +124,21 @@ printing its own line:
    the windspeed kernel not at all, the mass budget closes, some oil is
    submerged, evaporated and stranded, no NaN where an element is valid;
    one interval is profiled;
+5a. satellite-seeded oil: ``geotiff_oil_path``, a spill responder's
+   OpenOil run seeded by ``seed_from_geotiff_thickness`` from a
+   categorical slick-thickness GeoTIFF the script writes
+   (``opendrift_tpu_torch/tools/synthetic_tiff.py``: 1000 x 1000 LZW
+   pixels of about 50 m, the slick where the oil path releases), 2M
+   elements, three intervals through the oil kernel after one untimed
+   (checked: the oil kernel once a step and no other, the oil path's
+   checks, each category's count and the seeded mass against the JAX
+   package's formula, one host memory sample an output interval; printed:
+   the TIFF read's and the seeding's seconds, the rates, the peak memory);
+   one interval with ``general:profile_dir`` set (checked: a
+   ``torch.profiler`` trace naming the oil kernel ten times); then
+   ``seed_from_gml`` of a KSAT-style GML of three slicks at 2M elements
+   and one interval (checked: every point inside a slick, the count
+   within 5% of 2M, the oil kernel once a step);
 6. sampler path: ``OceanDrift(device="cuda")`` on the same ocean with a 3D
    ``ocean_vertical_diffusivity`` and the coast, 2M elements, RK4 on one
    corner block a step (``drift:advection_single_fetch``), 'block'
@@ -155,7 +170,12 @@ printing its own line:
    (the radionuclide and chemical goldens', a metals ChemicalDrift,
    OpenHNS, ModelTemplate; every status equal, species equal but for 1%),
    then ShipDrift's peak memory in a 2M-element step and OpenBerg's
-   2M-element step time.
+   2M-element step time; ``geotiff_card_against_cpu``: the GeoTIFF-seeded
+   OpenOil configuration at 4,096 elements (every status equal);
+11. scripts: ``python -m opendrift_tpu_torch.scripts.readerinfo`` on the
+   NetCDF path's ocean file, and the GUI's ``GuiController`` running
+   OceanDrift on that file at 100,000 elements on the card (checked: both
+   end cleanly, the result holds every element, no matplotlib loaded).
 
 Then the seconds of each phase, one JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -882,14 +902,23 @@ def oil_forcing(**kw):
     return current, wind, wave, x, y, depths, times
 
 
-def oil_simulation(device, n, model=None, seed=0, forcing_kw=None):
-    """An OpenOil run of ``n`` elements set up as a user would: GENERIC
-    MEDIUM CRUDE, 100 m3 released at the surface within a radius some
-    kilometres off the coast, RK4, dt = 900 s with 60 s mixing substeps,
-    evaporation, emulsification and dispersion on (the defaults), the
-    default current and wind uncertainty, stranding at the reader's
-    coast.  ``model=None`` keeps the default 'environment' diffusivity
-    model, which no reader serves here."""
+def oil_release_point(x, y):
+    """(lon, lat) of the oil path's release: two standard deviations of its
+    4 km release radius west of the oil forcing's coast, mid-latitude."""
+    nx = len(x)
+    coast = nx - max(2, COAST_CELLS * nx // 200)
+    cell_m = (x[1] - x[0]) * 111320.0 * np.cos(np.radians(y.mean()))
+    return (float(x[coast] - 2.0 * 4000.0 / cell_m * (x[1] - x[0])),
+            float(y[len(y) // 2]))
+
+
+def oil_model(device, model=None, seed=0, forcing_kw=None):
+    """OpenOil on the oil forcing's readers, set up as a user would: RK4,
+    dt = 900 s with 60 s mixing substeps, evaporation, emulsification and
+    dispersion on (the defaults), the default current and wind
+    uncertainty, stranding at the reader's coast.  ``model=None`` keeps
+    the default 'environment' diffusivity model, which no reader serves
+    here.  Returns (simulation, the forcing's x, y and times)."""
     from opendrift_tpu_torch.models import OpenOil
     from opendrift_tpu_torch.fields import ArrayReader
     current, wind, wave, x, y, depths, times = oil_forcing(
@@ -903,19 +932,26 @@ def oil_simulation(device, n, model=None, seed=0, forcing_kw=None):
     o.set_config("vertical_mixing:timestep", 60.0)
     if model is not None:
         o.set_config("vertical_mixing:diffusivitymodel", model)
-    nx = len(x)
-    coast = nx - max(2, COAST_CELLS * nx // 200)
-    cell_m = (x[1] - x[0]) * 111320.0 * np.cos(np.radians(y.mean()))
-    # two standard deviations of the release radius west of the coast
-    centre = float(x[coast] - 2.0 * 4000.0 / cell_m * (x[1] - x[0]))
-    o.seed_elements(lon=centre, lat=float(y[len(y) // 2]), radius=4000.0,
-                    number=n, time=times[0], z=0.0, m3_per_hour=100.0,
+    return o, x, y, times
+
+
+def oil_simulation(device, n, model=None, seed=0, forcing_kw=None):
+    """An OpenOil run of ``n`` elements (:func:`oil_model`): GENERIC MEDIUM
+    CRUDE, 100 m3 released at the surface within a radius some kilometres
+    off the coast (:func:`oil_release_point`)."""
+    o, x, y, times = oil_model(device, model, seed, forcing_kw)
+    lon, lat = oil_release_point(x, y)
+    o.seed_elements(lon=lon, lat=lat, radius=4000.0, number=n,
+                    time=times[0], z=0.0, m3_per_hour=100.0,
                     oil_type="GENERIC MEDIUM CRUDE")
     return o
 
 
-def check_oil_result(o, n, frames):
-    """The oil run's own checks; returns the numbers it logs."""
+def check_oil_result(o, n, frames, must_have=("evaporated_share",
+                                               "submerged_share",
+                                               "stranded_share")):
+    """The oil run's own checks; returns the numbers it logs.  Each share
+    of ``must_have`` must be above 0."""
     from opendrift_tpu_torch.export.io_netcdf import valid_mask
     status = np.asarray(o.result["status"].values)
     assert status.shape == (n, frames), status.shape
@@ -944,7 +980,7 @@ def check_oil_result(o, n, frames):
            "stranded_share": float((st == stranded).float().mean()),
            "active_share": float((st == 0).float().mean())}
     assert float(z.max()) <= 0.0, "elements above the surface"
-    for key in ("evaporated_share", "submerged_share", "stranded_share"):
+    for key in must_have:
         assert out[key] > 0.0, f"no oil {key.split('_')[0]}"
     return out
 
@@ -1004,6 +1040,291 @@ def oil_path():
     log("oil_path", model="environment", elements=n, steps=10, run_s=secs,
         launches=mixing.visser_mixing_oil.launches, **checks)
     return launches, stats
+
+
+# ------------------------------------------ the satellite-seeded oil -----
+
+SLICK_PIXEL_M = 50.0             # the slick raster's pixels, about 50 m
+SLICK_SHAPE = (1000, 1000)       # pixels: 50 x 50 km around the release
+SLICK_SEMI_AXES_PX = (220.0, 110.0)   # the slick: 22 x 11 km, within 7.3
+                                      # km of its centre eastward
+SLICK_THICKNESS_UM = (0.04, 0.44, 4.4, 16.0)   # categories 1-4
+SLICK_OIL_DENSITY = 1000.0       # kg/m3, as the GeoTIFF seeder takes it
+SEEDED_MASS_RTOL = 1e-6
+GML_SLICK_RADIUS_M = 6000.0
+GML_SLICKS = 3
+GML_COUNT_RTOL = 0.05
+
+
+def write_slick_files(directory, forcing_kw=None):
+    """A categorical slick GeoTIFF (uint8 categories 0-4, LZW, 1000 x 1000
+    pixels of about 50 m) and a KSAT-style GML of a few slick polygons,
+    both centred where :func:`oil_simulation` releases its oil, written by
+    ``opendrift_tpu_torch/tools/synthetic_tiff.py``; returns
+    {'tif': path, 'gml': path, 'tif_mb': size}."""
+    from opendrift_tpu_torch.tools import synthetic_tiff as st
+    _, _, _, x, y, _, times = oil_forcing(**(forcing_kw or {}))
+    lon_c, lat_c = oil_release_point(x, y)
+    dlon, dlat = st.pixel_degrees(SLICK_PIXEL_M, lat_c)
+    ny, nx = SLICK_SHAPE
+    cat = st.slick_categories(SLICK_SHAPE, semi_axes_px=SLICK_SEMI_AXES_PX)
+    tif = os.path.join(directory, "slick_thickness.tif")
+    size = st.write_geotiff(tif, cat, lon_c - nx / 2 * dlon,
+                            lat_c + ny / 2 * dlat, dlon, dlat,
+                            compression="lzw")
+    gml = st.write_gml(os.path.join(directory, "slicks.gml"),
+                       st.slick_polygons(lon_c, lat_c, GML_SLICK_RADIUS_M,
+                                         count=GML_SLICKS), times[0])
+    return {"tif": tif, "gml": gml, "tif_mb": size / 1e6}
+
+
+def slick_expectation(tif, number):
+    """The JAX package's formula for a GeoTIFF's seeding: each category's
+    element count round(number x area x thickness / sum) and the seeded
+    mass sum(area x thickness) x 1000 kg/m3."""
+    from opendrift_tpu_torch.utils.geotiff import read_geotiff
+    data, (lon0, dlon, lat0, dlat) = read_geotiff(tif)
+    rows = lat0 + dlat * (np.arange(data.shape[0]) + 0.5)
+    area = (abs(dlon) * 111320.0 * np.cos(np.radians(rows))[:, None]
+            * abs(dlat) * 110540.0)
+    areas = np.array([(area * (data == c)).sum() for c in (1, 2, 3, 4)])
+    weighted = areas * np.array(SLICK_THICKNESS_UM)
+    counts = np.round(number * weighted / weighted.sum()).astype(int)
+    return counts, float(weighted.sum() * 1e-6 * SLICK_OIL_DENSITY)
+
+
+def geotiff_simulation(device, n, tif, forcing_kw=None, seed=0):
+    """OpenOil (:func:`oil_model`, windspeed_Large1994) seeded from the
+    slick GeoTIFF: ``n`` elements of GENERIC MEDIUM CRUDE at the surface,
+    as a spill responder seeds from a satellite thickness map.  Returns
+    (simulation, seconds of the seeding)."""
+    import torch
+    o, _, _, times = oil_model(device, "windspeed_Large1994", seed,
+                               forcing_kw)
+    t = time.perf_counter()
+    o.seed_from_geotiff_thickness(tif, number=n, time=times[0],
+                                  oil_type="GENERIC MEDIUM CRUDE", z=0.0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return o, time.perf_counter() - t
+
+
+def check_slick_seeding(o, tif, n):
+    """Each category's count and the seeded mass against the JAX package's
+    formula; returns (elements seeded, the numbers logged)."""
+    counts, mass = slick_expectation(tif, n)
+    got = [len(s["lon"]) for s in o._seedings]
+    assert got == [int(c) for c in counts if c], (got, counts)
+    seeded = sum(float(np.sum(s["mass_oil"], dtype=np.float64))
+                 for s in o._seedings)
+    assert abs(seeded - mass) <= SEEDED_MASS_RTOL * mass, (seeded, mass)
+    return sum(got), {"category_counts": got, "slick_mass_kg": mass,
+                      "seeded_mass_rel_err": abs(seeded - mass) / mass}
+
+
+def points_outside_slicks(lon, lat, gml):
+    """Check that every seeded position (float32, as the elements hold
+    them) lies inside a slick polygon of ``gml`` by ``points_in_ring``, or
+    is one float32 step from a position inside (the seeder chose it in
+    float64, inside); returns how many needed that step."""
+    from xml.etree import ElementTree
+    from opendrift_tpu_torch.utils.shapefile import points_in_ring
+    rings = []
+    for pos in ElementTree.parse(gml).iter(
+            "{http://www.opengis.net/gml}posList"):
+        c = np.array(pos.text.split(), dtype=float)
+        rings.append(np.column_stack([c[0::2], c[1::2]]))
+
+    def inside(x, y):
+        hit = np.zeros(len(x), bool)
+        for ring in rings:
+            hit |= points_in_ring(x, y, ring)
+        return hit
+    lon = np.asarray(lon, np.float32)
+    lat = np.asarray(lat, np.float32)
+    out = ~inside(lon, lat)
+    x, y = lon[out], lat[out]
+    near = np.zeros(len(x), bool)
+    for dx in (-np.inf, None, np.inf):
+        for dy in (-np.inf, None, np.inf):
+            nx = x if dx is None else np.nextafter(x, np.float32(dx))
+            ny = y if dy is None else np.nextafter(y, np.float32(dy))
+            near |= inside(nx, ny)
+    assert near.all(), f"{int((~near).sum())} points outside every slick"
+    return int(out.sum())
+
+
+def run_geotiff(o, intervals, **kw):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=900 * 10 * intervals), time_step=900,
+          time_step_output=9000, export_variables=OIL_EXPORT, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def geotiff_oil_path(workdir, n=2_000_000):
+    """The GeoTIFF-seeded OpenOil run at 2M elements (three intervals after
+    one untimed), its profiled run from ``general:profile_dir`` and the
+    GML-seeded run; returns (the oil kernel's launches in the timed run,
+    its numbers, the GML run's launches)."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.utils.geotiff import read_geotiff
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile,
+               mixing.visser_mixing_oil)
+    t = time.perf_counter()
+    files = write_slick_files(workdir)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    read_geotiff(files["tif"])
+    read_s = time.perf_counter() - t
+    # one untimed interval: the first OpenOil run of this seeding
+    o, _ = geotiff_simulation("cuda", n, files["tif"])
+    run_geotiff(o, 1)
+    del o
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    o, seed_s = geotiff_simulation("cuda", n, files["tif"])
+    seeded, seeding = check_slick_seeding(o, files["tif"], n)
+    secs = run_geotiff(o, 3)
+    launches = mixing.visser_mixing_oil.launches
+    steps = 30
+    assert launches == steps, f"{launches} oil kernel launches in {steps}"
+    assert mixing.visser_mixing.launches == 0, "the run launched K1"
+    assert mixing.visser_mixing_profile.launches == 0, "the run launched K2"
+    assert len(o.memory_usage) == 3, o.memory_usage
+    checks = check_oil_result(o, seeded, 4)
+    readers_s = o.timers.get("main loop:readers", 0.0)
+    loop_s = o.timers["main loop"]
+    stats = {"elements": seeded, "steps": steps, "run_s": secs,
+             "preparing_s": o.timers.get("preparing main loop", 0.0),
+             "main_loop_s": loop_s, "readers_s": readers_s,
+             "particle_steps_per_s": seeded * steps / secs,
+             "particle_steps_per_s_steps_only":
+                 seeded * steps / (loop_s - readers_s)}
+    log("geotiff_oil_path", tif_mb=files["tif_mb"], write_files_s=write_s,
+        tiff_read_s=read_s, seeding_s=seed_s, **seeding, launches=launches,
+        windspeed_launches=mixing.visser_mixing.launches,
+        host_peak_rss_mb=o.memory_usage,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **checks,
+        **stats)
+    del o
+    # the run diagnostics: one untimed interval traced by torch.profiler
+    trace_dir = os.path.join(workdir, "trace")
+    o, _ = geotiff_simulation("cuda", n, files["tif"])
+    o.set_config("general:profile_dir", trace_dir)
+    profiled_s = run_geotiff(o, 1)
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    assert len(traces) == 1, traces
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    k3 = [e for e in events if "visser_mixing_oil_kernel" in
+          str(e.get("name", "")) and str(e.get("cat", "")).lower()
+          == "kernel"]
+    assert len(k3) == 10, f"{len(k3)} oil kernels in the trace"
+    assert len(o.memory_usage) == 1, o.memory_usage
+    log("geotiff_profile_dir", run_s=profiled_s, trace_file=traces[0],
+        trace_mb=os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6,
+        trace_events=len(events), oil_kernel_events=len(k3),
+        oil_kernel_name=k3[0]["name"][:120],
+        oil_kernel_device_ms=sum(e.get("dur", 0) for e in k3) / 1e3 / 10,
+        memory_usage_mb=o.memory_usage)
+    del o, events
+    # the GML-seeded run: one interval
+    for k in kernels:
+        k.launches = 0
+    o, _, _, times = oil_model("cuda", "windspeed_Large1994")
+    t = time.perf_counter()
+    o.seed_from_gml(files["gml"], num_elements=n,
+                    oil_type="GENERIC MEDIUM CRUDE", z=0.0)
+    gml_seed_s = time.perf_counter() - t
+    lon, lat = o._seedings[-1]["lon"], o._seedings[-1]["lat"]
+    count = len(lon)
+    assert abs(count - n) <= GML_COUNT_RTOL * n, count
+    edge = points_outside_slicks(lon, lat, files["gml"])
+    secs = run_geotiff(o, 1)
+    gml_launches = mixing.visser_mixing_oil.launches
+    assert gml_launches == 10, gml_launches
+    assert mixing.visser_mixing.launches == 0
+    checks = check_oil_result(o, count, 2, must_have=("evaporated_share",))
+    log("gml_oil_path", elements=count, seeding_s=gml_seed_s,
+        outside_by_float32_rounding=edge,
+        detection_time=str(o._seedings[-1]["time"][0]), run_s=secs,
+        launches=gml_launches, **checks)
+    return launches, stats, gml_launches
+
+
+def geotiff_card_against_cpu(workdir, n=4096, intervals=2):
+    """The GeoTIFF-seeded OpenOil configuration, small, on the card and on
+    the CPU from one seed: the same seeds, every status equal, the
+    positions within the slice tolerance."""
+    small = dict(nx=60, ny=60, nz=16, nt=5)
+    directory = os.path.join(workdir, "slick_small")
+    os.makedirs(directory, exist_ok=True)
+    tif = write_slick_files(directory, small)["tif"]
+    out, seeds = {}, {}
+    for device in ("cuda", "cpu"):
+        o, _ = geotiff_simulation(device, n, tif, forcing_kw=small)
+        seeds[device] = np.concatenate([s["lon"] for s in o._seedings])
+        o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+              time_step_output=9000, export_variables=OIL_EXPORT)
+        out[device] = final_frame(o)
+    assert np.array_equal(seeds["cuda"], seeds["cpu"])
+    status_diff, errs = hold_against(
+        "geotiff card", out["cuda"], out["cpu"], SLICE_MEDIAN_ATOL,
+        SLICE_OUTLIER_ATOL, SLICE_OUTLIER_SHARE, 0.0)
+    log("geotiff_card_vs_cpu", elements=len(seeds["cpu"]),
+        intervals=intervals, status_diff_share=status_diff,
+        max_abs_err=errs)
+    return errs
+
+
+# ------------------------------------------------------------- scripts ----
+
+GUI_N = 100_000
+
+
+def scripts_phase(files):
+    """``python -m opendrift_tpu_torch.scripts.readerinfo`` on the NetCDF
+    path's ocean file (on the card, as by default), and the GUI's
+    controller running OceanDrift on that file at 100,000 elements on
+    ``cuda``; neither imports matplotlib."""
+    import torch
+    from opendrift_tpu_torch.scripts.gui import GuiController
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "opendrift_tpu_torch.scripts.readerinfo",
+         files["norkyst"]], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    readerinfo_s = time.perf_counter() - t
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "x_sea_water_velocity" in out.stdout, out.stdout[-1000:]
+    ctl = GuiController()
+    assert ctl.device.type == "cuda"
+    ctl.select_model("OceanDrift")
+    reader = ctl.add_forcing(files["norkyst"])
+    logs = []
+    t = time.perf_counter()
+    o = ctl.run(lon=12.55, lat=67.9, radius=2000.0, number=GUI_N,
+                start_time=reader.times[0], duration_hours=2.0,
+                time_step=900, log=logs.append)
+    torch.cuda.synchronize()
+    gui_s = time.perf_counter() - t
+    lon = np.asarray(o.result["lon"].values)
+    status = np.asarray(o.result["status"].values)
+    assert lon.shape == (GUI_N, 9), lon.shape
+    assert np.isfinite(lon[status == 0]).all()
+    assert any("finished" in m for m in logs), logs
+    assert o.state.data["lon"].device.type == "cuda"
+    assert "matplotlib" not in sys.modules
+    log("scripts", readerinfo_s=readerinfo_s,
+        readerinfo_lines=len(out.stdout.splitlines()),
+        gui_elements=GUI_N, gui_run_s=gui_s,
+        gui_active_share=float((status[:, -1] == 0).mean()),
+        matplotlib_loaded=False)
 
 
 # ------------------------------------------------- the sampler path -------
@@ -2862,6 +3183,8 @@ def run_phases(kind, power, t, seconds, workdir):
     roms_launches, roms_stats = timed("roms_path", roms_path, files)
     mesh_launches, mesh_stats = timed("mesh_path", mesh_path, files)
     launches["visser_mixing_oil"], oil_stats = timed("oil_path", oil_path)
+    geotiff_launches, geotiff_stats, gml_launches = timed(
+        "geotiff_oil_path", geotiff_oil_path, workdir)
     plast_launches, plast_stats = timed("plast_path", plast_path)
     timed("leeway_path", leeway_path)
     timed("chemical_path", chemical_path, workdir)
@@ -2872,6 +3195,8 @@ def run_phases(kind, power, t, seconds, workdir):
             ("main", "visser_mixing", launches["visser_mixing"], stats),
             ("oil", "visser_mixing_oil", launches["visser_mixing_oil"],
              oil_stats),
+            ("geotiff", "visser_mixing_oil", geotiff_launches,
+             geotiff_stats),
             ("coast", "visser_mixing", coast_launches, coast_stats),
             ("netcdf", "visser_mixing", netcdf_launches, netcdf_stats),
             ("roms", "visser_mixing_profile", roms_launches, roms_stats),
@@ -2904,7 +3229,8 @@ def run_phases(kind, power, t, seconds, workdir):
     rows["visser_mixing_profile"]["paths"] = {
         "sampler": launches["visser_mixing_profile"], "roms": roms_launches}
     rows["visser_mixing_oil"]["paths"] = {
-        "oil": launches["visser_mixing_oil"]}
+        "oil": launches["visser_mixing_oil"], "geotiff": geotiff_launches,
+        "gml": gml_launches}
     for name in ("gather_rows_async", "gather_rows_smem"):
         rows[name]["paths"] = {"gather_ab": launches[name]}
     for name, fn in (("prefetch_ab", prefetch_ab),
@@ -2919,6 +3245,8 @@ def run_phases(kind, power, t, seconds, workdir):
     timed("netcdf_card_against_cpu", netcdf_card_against_cpu, small_files)
     timed("roms_card_against_cpu", roms_card_against_cpu, small_files)
     timed("mesh_card_against_cpu", mesh_card_against_cpu, small_files)
+    timed("geotiff_card_against_cpu", geotiff_card_against_cpu, workdir)
+    timed("scripts", scripts_phase, files)
     log("phase_seconds", total=time.perf_counter() - t, **seconds)
 
     kernels = [{k: v for k, v in row.items()

@@ -12,7 +12,11 @@ automatic coastline landmask and the polygon seeders, an OpenOil run
 (weathering, wave entrainment, stranding), the whole reader layer, the
 whole model zoo (:func:`get_model_names`) with the Eulerian solver
 (``models.eulerdrift``), the post-processing of a result (density maps,
-residence time, FTLE) and its round trip through :func:`open`.  The three mixing kernels are hand-written CUDA
+residence time, FTLE), the plots (matplotlib, imported inside each plot),
+the GeoTIFF and GML oil seeders, the command-line scripts
+(``python -m opendrift_tpu_torch.scripts.<name> --device ...``), LADiM
+imports (:func:`import_from_ladim`) and a result's round trip through
+:func:`open`.  The three mixing kernels are hand-written CUDA
 (``csrc/visser_mixing.cu``); the host NaN fill is C++ built with g++
 (``csrc/fieldpipe.cpp``).
 """
@@ -73,6 +77,78 @@ def open(filename, device=None):
     o = cls(loglevel=logging.WARNING, device=device)
     o.result = result
     o._config_from_attributes(result.attrs)
+    o.mode = Mode.Result
+    return o
+
+
+def import_from_ladim(ladimfile, romsfile, device=None):
+    """A LADiM output NetCDF file as an OceanDrift simulation in Result
+    mode (reference opendrift/__init__.py:125-187), on ``cuda`` unless
+    ``device`` says otherwise.
+
+    LADiM stores ragged per-timestep particle records (``pid``,
+    ``particle_count``, grid coordinates ``X``/``Y``); they are scattered
+    into the dense (trajectory, time) layout of a result, with positions
+    converted to lon/lat through the ROMS grid of ``romsfile`` (a path or
+    a reader).  Each trajectory's last valid state is 'missing_data'.
+    """
+    import numpy as np
+    from .utils import ncio
+    from .utils.dataset import TrajectoryDataset, DataVar
+    from .models.oceandrift import OceanDrift
+    from .models.base import Mode
+
+    if isinstance(romsfile, str):
+        from .fields.roms import ROMSReader
+        romsfile = ROMSReader(romsfile)
+    f = ncio.NCFile(ladimfile)
+    pid = np.asarray(f.variables["pid"][:], dtype=np.int64)
+    particle_count = np.asarray(f.variables["particle_count"][:],
+                                dtype=np.int64)
+    x = np.asarray(f.variables["X"][:], dtype=np.float64)
+    y = np.asarray(f.variables["Y"][:], dtype=np.float64)
+    tvar = f.variables["time"]
+    times = ncio.parse_cf_time(tvar.attrs["units"], tvar[:])
+
+    end_index = np.cumsum(particle_count)
+    start_index = np.concatenate(([0], end_index[:-1]))
+    lon, lat = romsfile.xy2lonlat(x, y)
+    n_time = len(times)
+    n_elements = int(pid.max()) + 1
+    lon_h = np.full((n_elements, n_time), np.nan, dtype=np.float32)
+    lat_h = np.full((n_elements, n_time), np.nan, dtype=np.float32)
+    status = np.full((n_elements, n_time), -128, dtype=np.int8)
+    for n in range(n_time):
+        sl = slice(start_index[n], start_index[n] + particle_count[n])
+        active = pid[sl]
+        lon_h[active, n] = lon[sl]
+        lat_h[active, n] = lat[sl]
+        status[active, n] = 0
+    # the last valid state of each trajectory (reference :168-172)
+    valid = status == 0
+    has_any = valid.any(axis=1)
+    last = np.where(has_any,
+                    n_time - 1 - np.argmax(valid[:, ::-1], axis=1), 0)
+    rows = np.arange(n_elements)[has_any]
+    status[rows, last[has_any]] = 1
+
+    o = OceanDrift(loglevel=logging.WARNING, device=device)
+    o.result = TrajectoryDataset(
+        variables={
+            "lon": DataVar(("trajectory", "time"), lon_h,
+                           {"units": "degrees_east"}),
+            "lat": DataVar(("trajectory", "time"), lat_h,
+                           {"units": "degrees_north"}),
+            "status": DataVar(("trajectory", "time"), status,
+                              {"valid_range": np.array([0, 1]),
+                               "flag_values": np.array([0, 1]),
+                               "flag_meanings": "active missing_data"}),
+        },
+        coords={"trajectory": np.arange(n_elements, dtype=np.int32),
+                "time": np.array([np.datetime64(t, "ns") for t in times])},
+        attrs={"opendrift_class": "OceanDrift",
+               "source": f"LADiM import of {ladimfile}"})
+    o.status_categories = ["active", "missing_data"]
     o.mode = Mode.Result
     return o
 

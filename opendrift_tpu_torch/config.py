@@ -60,6 +60,9 @@ class Configurable:
                 continue
             self._config[key] = ConfigItem(spec)
 
+    def _config_hash_remove(self, key):
+        self._config.pop(key, None)
+
     def get_configspec(self, prefix="", level=None):
         out = {}
         for key, item in self._config.items():

@@ -68,6 +68,10 @@ class LagrangianArray:
         return variables
 
     @classmethod
+    def seedable_variables(cls):
+        return [n for n, s in cls.variables.items() if s.get("seed", True)]
+
+    @classmethod
     def default(cls, name):
         return cls.variables[name].get("default", 0.0)
 
@@ -118,3 +122,6 @@ class ElementState:
     @property
     def released(self):
         return self.data["status"] >= ACTIVE
+
+    def num_active(self):
+        return int(self.active.sum())

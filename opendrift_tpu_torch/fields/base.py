@@ -14,11 +14,12 @@ Priority chains, fallbacks and vector rotation are applied by the
 environment.  The reader algebra (``+``, ``-``, ``*``, ``/``,
 ``combine_gaussian``; ``fields/operators.py``) and the standalone
 diagnostics (``covers_positions``, ``get_timeseries_at_position``,
-``sample_at``) are the JAX package's; the diagnostics sample on the
+``sample_at``) and ``plot`` are the JAX package's; they sample on the
 reader's device (``device=``, else the one the environment gave it, else
-``cuda``).  ``plot`` is not ported (ROADMAP A.13).
+``cuda``).  ``plot`` imports matplotlib when called.
 """
 
+from datetime import datetime
 from numbers import Number
 
 import numpy as np
@@ -26,6 +27,7 @@ import torch
 
 from ..interop import device_state_from_numpy, resolve_device
 from ..utils import crs as crslib
+from ..utils.plotting import pyplot
 from ..utils.xp import tnp
 
 # grid-x/grid-y vector pairs rotated to east/north on projected grids
@@ -88,6 +90,7 @@ class BaseReader:
     ymax = None
     always_valid = False
     device = None
+    verticalbuffer = 1
 
     def __init__(self):
         if self.name is None:
@@ -121,6 +124,25 @@ class BaseReader:
                                         torch.hypot(v[a], v[b]))
                 self.variables = list(self.variables) + [speed]
 
+    @property
+    def derived_variables(self):
+        """Names served by mappings rather than data (reference
+        ``Variables.derived_variables``)."""
+        return list(self._derived)
+
+    def activate_environment_mapping(self, name):
+        """Opt-in mappings (reference ``activate_environment_mapping``):
+        'land_binary_mask_from_ocean_depth' (variables.py:449-450, off by
+        default there too)."""
+        if name != "land_binary_mask_from_ocean_depth":
+            raise ValueError(f"unknown environment mapping: {name}")
+        src = "sea_floor_depth_below_sea_level"
+        if src in (self.variables or []) \
+                and "land_binary_mask" not in self.variables:
+            self._derived["land_binary_mask"] = (
+                (src,), lambda v, s=src: (v[s] <= 0).to(torch.float32))
+            self.variables = list(self.variables) + ["land_binary_mask"]
+
     def expand_derived(self, want):
         """Split a request into (fetch list incl. sources, derived names)."""
         if not self._derived:
@@ -144,6 +166,12 @@ class BaseReader:
 
     def lonlat2xy(self, lon, lat):
         return self.crs.fwd(np, np.asarray(lon, float), np.asarray(lat, float))
+
+    def covers_time(self, time):
+        """Whether the reader has data at ``time`` (a datetime)."""
+        if self.always_valid or self.start_time is None:
+            return True
+        return self.start_time <= time <= self.end_time
 
     def covers_positions(self, lon, lat):
         """Host-side coverage check (seeding diagnostics)."""
@@ -325,6 +353,59 @@ class BaseReader:
         return operators.GaussianBlendReader(
             self, measurement_reader, lon0=measurement_reader.lon,
             lat0=measurement_reader.lat, radius_m=std)
+
+    def plot(self, variable=None, time=None, vmin=None, vmax=None,
+             filename=None, buffer=1.0, device=None):
+        """Plot the reader's coverage outline, optionally with one
+        variable's field sampled on an 80 x 80 grid over its extent at
+        ``time`` (reference basereader/__init__.py:240-330; plain
+        matplotlib).  The field is sampled on ``device`` (else the
+        reader's, else ``cuda``) and brought to the host."""
+        plt = pyplot()
+        fig, ax = plt.subplots()
+        if self.xmin is not None and self.ymin is not None:
+            xs = np.array([self.xmin, self.xmax, self.xmax, self.xmin,
+                           self.xmin])
+            ys = np.array([self.ymin, self.ymin, self.ymax, self.ymax,
+                           self.ymin])
+            blon, blat = self.xy2lonlat(xs, ys)
+            ax.plot(blon, blat, "r-", lw=1.5, label="coverage")
+        if variable is not None:
+            nx = ny = 80
+            if self.xmin is None:
+                raise ValueError("reader has no spatial extent to plot")
+            gx = np.linspace(self.xmin, self.xmax, nx)
+            gy = np.linspace(self.ymin, self.ymax, ny)
+            GX, GY = np.meshgrid(gx, gy)
+            glon, glat = self.xy2lonlat(GX.ravel(), GY.ravel())
+            t = time or getattr(self, "start_time", None)
+            if getattr(self, "_run_epoch", None) is None:
+                self.set_run_epoch(t or datetime(2000, 1, 1))
+            self.prepare()
+            device = resolve_device(device or self.device)
+            dev = device_state_from_numpy(self.device_state(), device)
+            trel = 0.0 if t is None else (
+                t - self._run_epoch).total_seconds()
+            pos = [torch.as_tensor(np.asarray(a, dtype=np.float32),
+                                   device=device)
+                   for a in (glon, glat, np.zeros(len(glon)))]
+            vals, covers = self.sample(dev, [variable], np.float32(trel),
+                                       *pos)
+            field = vals[variable].cpu().numpy().reshape(ny, nx)
+            field = np.where(covers.cpu().numpy().reshape(ny, nx),
+                             field, np.nan)
+            m = ax.pcolormesh(np.asarray(glon).reshape(ny, nx),
+                              np.asarray(glat).reshape(ny, nx), field,
+                              vmin=vmin, vmax=vmax, shading="auto")
+            fig.colorbar(m, ax=ax, label=variable)
+        ax.set_xlabel("Longitude")
+        ax.set_ylabel("Latitude")
+        ax.set_title(self.name)
+        if filename:
+            fig.savefig(filename, dpi=100)
+            plt.close(fig)
+        else:
+            return fig
 
     def __repr__(self):
         s = f"Reader: {self.name}\n  variables: {self.variables}\n"

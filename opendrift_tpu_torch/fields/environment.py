@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..errors import VariableNotCoveredError
-from ..interop import device_state_from_numpy
+from ..interop import device_state_from_numpy, resolve_device
 from .. import rng
 from .analytic import ConstantReader
 
@@ -29,9 +29,10 @@ logger = logging.getLogger(__name__)
 
 
 class Environment:
-    def __init__(self, required_variables, device, max_reader_fails=1):
+    def __init__(self, required_variables, max_reader_fails=1, *,
+                 device=None):
         self.required_variables = required_variables
-        self.device = device
+        self.device = resolve_device(device)
         self.readers = OrderedDict()
         self.priority_list = OrderedDict()
         self.max_reader_fails = max_reader_fails

@@ -19,13 +19,14 @@ matches upstream; the internals follow the JAX package:
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card a CUDA request raises.  The post-processing mixin (density
-maps, residence time, FTLE) is mixed in as in the JAX package.  Deferred:
-domain decomposition, particle sharding and capacity padding (ROADMAP
-A.14), and the plotting mixin (A.13).
+maps, residence time, FTLE) and the plotting mixin (matplotlib, imported
+inside each plot) are mixed in as in the JAX package.  Deferred: domain
+decomposition, particle sharding and capacity padding (ROADMAP A.14).
 """
 
 import json
 import logging
+import os
 import re
 from datetime import datetime, timedelta
 from enum import Enum
@@ -53,6 +54,7 @@ from ..utils.shapefile import points_in_ring, shapefile_polygons
 from ..utils.dataset import TrajectoryDataset, DataVar
 from ..utils.xp import tnp
 from .physics import PhysicsContext
+from .plot import PlottingMixin
 from .postprocess import PostProcessingMixin
 
 logger = logging.getLogger(__name__)
@@ -87,13 +89,15 @@ def _seconds(value):
     return float(value)
 
 
-class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
+class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
+                          Configurable):
     """Abstract base simulation.  Subclasses define ``ElementType``,
     ``required_variables`` and ``update(ctx)``."""
 
     ElementType = LagrangianArray
     required_variables = {}
     required_profiles_z_range = None
+    max_speed = 1.3                    # m/s, for coverage/halo estimates
 
     def __init__(self, loglevel=logging.DEBUG, seed=0, logfile=None,
                  device=None):
@@ -109,7 +113,7 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
         self.messages = []
         if loglevel is not None:
             logging.basicConfig(level=loglevel)
-        self.env = Environment(self.required_variables, self.device)
+        self.env = Environment(self.required_variables, device=self.device)
         self._add_base_config()
         self._add_seed_configs()
         self._add_environment_configs()
@@ -148,6 +152,14 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
                 "description": "Counter-based PRNG of the stochastic "
                 "processes. 'threefry' is bit-reproducible across backends; "
                 "the TPU-only 'rbg' is not available in this port"},
+            "general:profile_dir": {
+                "type": "str", "default": "",
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Capture a torch.profiler trace of the main "
+                "loop (host and, on a card, CUDA kernels) into this "
+                "directory as a Chrome/TensorBoard trace file; empty = "
+                "off.  The device-level counterpart of the hierarchical "
+                "wall-clock timers (reference timer.py)"},
             "general:time_step_minutes": {
                 "type": "float", "default": 60.0, "min": 1e-6, "max": 1e5,
                 "units": "minutes", "level": CONFIG_LEVEL_BASIC,
@@ -286,6 +298,33 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
         readers = [r for r in readers if r is not None]
         self.add_reader(readers, variables=variables)
         return self
+
+    def add_readers_from_file(self, filename, timeout=None, lazy=True):
+        """Add readers from a text file of paths/URLs, one per line
+        (reference basemodel/__init__.py:622-624); a source that does not
+        open is logged and skipped."""
+        from ..fields.factory import reader_from_url
+        with open(filename) as fd:
+            urls = [ln.strip() for ln in fd
+                    if ln.strip() and not ln.startswith("#")]
+        for u in urls:
+            try:
+                self.add_reader(reader_from_url(u, lazy=lazy))
+            except Exception as e:
+                logger.warning("could not open reader %s: %s", u, e)
+
+    def default_readers(self):
+        """The sources listed in the package's ``scripts/data_sources.txt``
+        (reference basemodel/__init__.py:626-631), read as text: nothing is
+        opened."""
+        import importlib.resources as res
+        try:
+            txt = (res.files("opendrift_tpu_torch.scripts")
+                   / "data_sources.txt").read_text()
+        except Exception:
+            return []
+        return [ln.strip() for ln in txt.splitlines()
+                if ln.strip() and not ln.startswith("#")]
 
     # ----------------------------------------------------------- seeding --
     @require_mode([Mode.Config, Mode.Ready])
@@ -589,6 +628,41 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
                                          number=int(cnt), **kwargs)
         return self
 
+    def seed_from_ladim(self, ladimfile, roms):
+        """Seed from a LADiM *.rls release file [time, x, y, z]
+        (reference basemodel/__init__.py:1655-1680); grid x/y are taken to
+        the cell of the given ROMS reader's rho coordinates."""
+        data = np.loadtxt(ladimfile,
+                          dtype={"names": ("time", "x", "y", "z"),
+                                 "formats": ("U20", "f4", "f4", "f4")},
+                          usecols=(0, 1, 2, 3))
+        time = np.array([datetime.strptime(t, "%Y-%m-%dT%H")
+                         for t in np.atleast_1d(data["time"])])
+        x = np.atleast_1d(data["x"])
+        y = np.atleast_1d(data["y"])
+        z = -np.abs(np.atleast_1d(data["z"]))
+        xi = np.clip(x.astype(int), 0, roms._lon_rho.shape[1] - 1)
+        yi = np.clip(y.astype(int), 0, roms._lon_rho.shape[0] - 1)
+        lon = roms._lon_rho[yi, xi]
+        lat = roms._lat_rho[yi, xi]
+        self.seed_elements(lon=lon, lat=lat, z=z, time=list(time))
+
+    def seed_from_geopandas(self, geodataframe, time, **kwargs):
+        """Seed within the polygons (or at the points) of a GeoPandas
+        GeoDataFrame or any object with a ``geometry`` sequence of
+        shapely-like geometries (reference basemodel/__init__.py:
+        1584-1652); geopandas itself is not needed."""
+        geoms = list(geodataframe.geometry)
+        if all(getattr(geom, "geom_type", "") == "Point" for geom in geoms):
+            self.seed_elements(lon=[p.x for p in geoms],
+                               lat=[p.y for p in geoms], time=time, **kwargs)
+            return
+        for geom in geoms:
+            if hasattr(geom, "exterior"):
+                lons, lats = zip(*list(geom.exterior.coords))
+                self.seed_within_polygon(np.array(lons), np.array(lats),
+                                         time=time, **kwargs)
+
     @require_mode([Mode.Config, Mode.Ready])
     def seed_from_dataset(self, ds, **kwargs):
         """Continue from the last valid state of a previous result: each
@@ -641,9 +715,15 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
     # ------------------------------------------------------------- run ----
     @require_mode(Mode.Ready, "Elements must be seeded before running")
     def run(self, time_step=None, steps=None, duration=None, end_time=None,
-            time_step_output=None, outfile=None, export_variables=None):
+            time_step_output=None, outfile=None, export_variables=None,
+            export_buffer_length=100):
         """Run the simulation; the result lands in ``self.result`` (and in
-        ``outfile``, a CF trajectory NetCDF file, when given)."""
+        ``outfile``, a CF trajectory NetCDF file, when given).
+        ``export_buffer_length`` is accepted and unused, as in the JAX
+        package: the flush length is ``export:buffer_length``.  The host's
+        peak RSS in MB is sampled into ``self.memory_usage`` once an output
+        interval; ``general:profile_dir`` traces the main loop with
+        ``torch.profiler``."""
         self.timer_start("preparing main loop")
         self.mode = Mode.Run
         if time_step is None:
@@ -693,6 +773,9 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
 
         self.timer_end("preparing main loop")
         self.timer_start("main loop")
+        profile_dir = self.get_config("general:profile_dir")
+        profiler = self._start_profiler(profile_dir) if profile_dir else None
+        self.memory_usage = []
         frames, frame_times = [], []
         writer = None
         flushed = 0
@@ -737,6 +820,7 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
                 frames.append(host(snap))
                 frame_times.append(self.start_time
                                    + timedelta(seconds=float(t_rel)))
+                self._sample_memory()
                 flush()
             t_rel = np.float32(n_intervals * K * dt)
             dev_states = device_states(n_intervals - 1)
@@ -754,6 +838,11 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
                 self.mode = Mode.Result
             self.timer_end("main loop")
             raise
+        finally:
+            if profiler is not None:
+                profiler.stop()
+        if profiler is not None:
+            logger.info("torch.profiler trace written to %s", profile_dir)
         self.timer_end("main loop")
 
         self.timer_start("postprocessing")
@@ -770,6 +859,31 @@ class OpenDriftSimulation(PostProcessingMixin, Timeable, Configurable):
         self.mode = Mode.Result
         self.post_run()
         return self
+
+    def _start_profiler(self, profile_dir):
+        """A started ``torch.profiler`` that writes its trace into
+        ``profile_dir`` when stopped (CUDA kernels too on a card)."""
+        from torch.profiler import ProfilerActivity, profile, \
+            tensorboard_trace_handler
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(
+                               profile_dir))
+        profiler.start()
+        return profiler
+
+    def _sample_memory(self):
+        """Append the host's peak RSS in MB (reference samples psutil
+        into ``memory_usage`` each step, basemodel/__init__.py:2194)."""
+        try:
+            import resource
+            self.memory_usage.append(
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0)
+        except Exception:  # noqa: BLE001 (diagnostics only)
+            pass
 
     def post_run(self):
         """Model hook called after the run completes

@@ -28,6 +28,7 @@ from ..config import CONFIG_LEVEL_BASIC, CONFIG_LEVEL_ADVANCED, \
     CONFIG_LEVEL_ESSENTIAL
 from ..ops.speciation import speciation_step
 from ..ops import physics as ph
+from ..utils.plotting import pyplot
 from .oceandrift import OceanDrift, Lagrangian3DArray
 from .radionuclides import on_device, resuspend
 
@@ -1031,10 +1032,24 @@ class ChemicalDrift(OceanDrift):
 
     def plot_mass(self, filename=None):
         """Stacked time series of the chemical mass budget (reference
-        chemicaldrift.py ``plot_mass``): the plots come with ROADMAP
-        A.13."""
-        raise NotImplementedError(
-            "plot_mass is not ported yet (ROADMAP A.13)")
+        chemicaldrift.py ``plot_mass``).  The result's times are a numpy
+        array; the JAX package's ``.values`` of them raises (ROADMAP
+        C.9)."""
+        plt = pyplot()
+        budget = self.get_chemical_budget()
+        times = np.asarray(self.result.coords["time"])
+        fig, ax = plt.subplots()
+        ax.stackplot(times, budget["mass_total_active"],
+                     budget["mass_degraded"],
+                     budget["mass_volatilized"],
+                     labels=["active", "degraded", "volatilized"])
+        ax.set_ylabel("mass [ug]")
+        ax.legend(loc="upper left")
+        if filename:
+            fig.savefig(filename, dpi=100)
+            plt.close(fig)
+        else:
+            return fig
 
     def get_chemical_budget(self):
         ds = self.result

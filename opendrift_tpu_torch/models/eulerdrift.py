@@ -23,6 +23,7 @@ import torch
 
 from ..interop import resolve_device
 from ..utils import crs as crslib
+from ..utils.plotting import pyplot
 
 logger = logging.getLogger(__name__)
 
@@ -187,10 +188,21 @@ class EulerGrid:
         return float(lon), float(lat)
 
     def plot(self, ax=None, show=False, cmap="inferno"):
-        """Show the concentration field (reference: eulerdrift/
-        grid.py:110-118 ``plot``): the plots come with ROADMAP A.13."""
-        raise NotImplementedError(
-            "EulerGrid.plot is not ported yet (ROADMAP A.13)")
+        """Show the concentration field, brought to the host (reference:
+        eulerdrift/grid.py:110-118 ``plot``; a matplotlib extent plot, no
+        cartopy)."""
+        plt = pyplot()
+        if ax is None:
+            _, ax = plt.subplots()
+        im = ax.imshow(self.field.cpu().numpy(), origin="lower",
+                       extent=[self.x[0], self.x[-1],
+                               self.y[0], self.y[-1]], cmap=cmap)
+        plt.colorbar(im, ax=ax, orientation="horizontal")
+        ax.set_xlabel("easting [m]")
+        ax.set_ylabel("northing [m]")
+        if show:
+            plt.show()
+        return ax
 
 
 def _step_kernel(c, u, v, D, dx, dt):

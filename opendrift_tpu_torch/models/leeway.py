@@ -20,6 +20,7 @@ from .. import rng
 from ..config import CONFIG_LEVEL_ESSENTIAL, CONFIG_LEVEL_BASIC, \
     CONFIG_LEVEL_ADVANCED
 from ..elements import LagrangianArray
+from ..utils.plotting import pyplot
 from .base import OpenDriftSimulation
 
 RIGHT = 0
@@ -193,9 +194,23 @@ class Leeway(OpenDriftSimulation):
     # ---------------------------------------------------------- physics ---
     def plot_capsize_probability(self, filename=None):
         """Capsize probability against wind speed (reference
-        leeway.py:415): the plots come with ROADMAP A.13."""
-        raise NotImplementedError(
-            "plot_capsize_probability is not ported yet (ROADMAP A.13)")
+        leeway.py:415), evaluated in float32 on the CPU."""
+        plt = pyplot()
+        U = np.linspace(0, 35, 100)
+        thr = self.get_config("capsizing:wind_threshold")
+        sigma = self.get_config("capsizing:wind_threshold_sigma")
+        p = self.capsize_probability(
+            torch.as_tensor(U, dtype=torch.float32), thr, sigma).numpy()
+        fig, ax = plt.subplots()
+        ax.plot(U, p)
+        ax.set_title(f"p(u) = 0.5 + 0.5*tanh((u - {thr}) / {sigma})")
+        ax.set_xlabel("Wind speed [m/s]")
+        ax.set_ylabel("Probability of capsizing per hour")
+        if filename:
+            fig.savefig(filename, dpi=100)
+            plt.close(fig)
+        else:
+            return fig
 
     @staticmethod
     def capsize_probability(wind, threshold, sigma):

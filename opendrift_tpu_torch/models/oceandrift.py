@@ -26,7 +26,9 @@ from ..elements import LagrangianArray
 from ..config import CONFIG_LEVEL_BASIC, CONFIG_LEVEL_ADVANCED, \
     CONFIG_LEVEL_ESSENTIAL
 from ..ops import mixing
+from ..utils import plotting
 from .base import OpenDriftSimulation
+from .plot import _save_animation
 
 logger = logging.getLogger(__name__)
 
@@ -549,3 +551,58 @@ class OceanDrift(OpenDriftSimulation):
                 wind, depth, mixed_layer_depth,
                 background_diffusivity).numpy()
         raise ValueError(f"unknown diffusivity model {model}")
+
+    def plot_vertical_distribution(self, maxdepth=None, bins=50,
+                                   time_index=-1, filename=None):
+        """Histogram of element depths at one output time (reference
+        oceandrift.py:650-712; the reference's interactive slider is the
+        ``time_index`` argument here)."""
+        plt = plotting.pyplot()
+        z = np.asarray(self.result["z"])[:, time_index]
+        z = z[np.isfinite(z)]
+        if maxdepth is None:
+            maxdepth = float(np.floor(z.min())) if z.size else -10.0
+        fig, ax = plt.subplots(figsize=(5, 7))
+        ax.hist(z, bins=bins, range=(maxdepth, 0),
+                orientation="horizontal", color="steelblue")
+        ax.set_ylim(maxdepth, 0)
+        ax.set_xlabel("Number of elements")
+        ax.set_ylabel("Depth [m]")
+        if filename:
+            fig.savefig(filename, dpi=100)
+            plt.close(fig)
+        else:
+            return fig
+
+    def animate_vertical_distribution(self, maxdepth=None, bins=50,
+                                      subsamplingstep=1, filename=None):
+        """Animated depth histogram over the output steps (reference
+        oceandrift.py:573-648)."""
+        plt = plotting.pyplot()
+        manim = plotting.animation()
+        zs = np.asarray(self.result["z"])
+        n_time = zs.shape[1]
+        if maxdepth is None:
+            finite = zs[np.isfinite(zs)]
+            maxdepth = float(np.floor(finite.min())) if finite.size \
+                else -10.0
+        fig, ax = plt.subplots(figsize=(5, 7))
+        frames = range(0, n_time, max(1, int(subsamplingstep)))
+
+        def draw(ti):
+            ax.clear()
+            z = zs[:, ti]
+            z = z[np.isfinite(z)]
+            ax.hist(z, bins=bins, range=(maxdepth, 0),
+                    orientation="horizontal", color="steelblue")
+            ax.set_ylim(maxdepth, 0)
+            ax.set_xlabel("Number of elements")
+            ax.set_ylabel("Depth [m]")
+            ax.set_title(str(np.asarray(self.result.coords["time"])[ti]))
+
+        anim = manim.FuncAnimation(fig, draw, frames=frames, interval=150)
+        if filename:
+            _save_animation(anim, filename, fps=6)
+            plt.close(fig)
+        else:
+            return anim

@@ -18,8 +18,10 @@ profiles, ``vertical_mixing:use_pallas=False``, overridden hooks) the step
 takes the generic per-substep loop of ``OceanDrift.vertical_mixing`` with
 :meth:`OpenOil.surface_wave_mixing`, whose entrainment draws are keyed
 otherwise than the kernel's (as in the JAX package: the two paths give
-different realisations of the same process).  ``seed_from_gml``,
-``seed_from_geotiff_thickness`` and the plot helpers come with A.13.
+different realisations of the same process).  The satellite seeders
+(``seed_from_gml``, ``seed_from_geotiff_thickness``) are host code and draw
+what the JAX package draws; the plot helpers import matplotlib when
+called.
 
 Float32 throughout: the oil's scalar properties are Python floats, which
 never promote a float32 tensor.
@@ -35,6 +37,8 @@ from ...config import CONFIG_LEVEL_ESSENTIAL, CONFIG_LEVEL_BASIC, \
     CONFIG_LEVEL_ADVANCED
 from ...ops import mixing
 from ...ops import physics as ph
+from ...utils.plotting import pyplot
+from ...utils.shapefile import points_in_ring
 from ..oceandrift import OceanDrift, Lagrangian3DArray
 from .oil_db import OilType, get_oil_names
 
@@ -684,3 +688,192 @@ class OpenOil(OceanDrift):
         entrained = np.isfinite(z) & (z < 0)
         ever = np.logical_or.accumulate(entrained, axis=1)
         return ever.sum(axis=0) / z.shape[0]
+
+    # ----------------------------------------------- satellite seeding ---
+    def seed_from_gml(self, gmlfile, num_elements=1000, **kwargs):
+        """Seed oil within the slick polygons of a KSAT-style oil-detection
+        GML file (reference openoil.py:1773-1867).  The time is the file's
+        ``od:detectionTime``; the points lie on one equal-spacing grid over
+        each polygon's bounding box, its spacing chosen so that the count
+        over all slicks is about ``num_elements`` (proportional to slick
+        area, as the reference does).  The inside test is
+        ``utils/shapefile.points_in_ring``, matplotlib's float64 predicate,
+        so the points equal the JAX package's."""
+        from datetime import datetime as _dt
+        from xml.etree import ElementTree
+
+        ns = {"od": "http://cweb.ksat.no/cweb/schema/geoweb/oil",
+              "gml": "http://www.opengis.net/gml"}
+        tree = ElementTree.parse(gmlfile)
+        tpos = "od:oilDetectionMember/od:oilDetection/od:detectionTime"
+        oil_time = _dt.strptime(tree.find(tpos, ns).text,
+                                "%Y-%m-%dT%H:%M:%S.%fZ")
+        ppos = ("od:oilDetectionMember/od:oilDetection/od:oilSpill/"
+                "gml:Polygon")
+        rpos = "gml:exterior/gml:LinearRing/gml:posList"
+        slicks = []
+        for patch in tree.findall(ppos, ns):
+            c = np.array(patch.find(rpos, ns).text.split(), dtype=float)
+            slicks.append((c[0::2], c[1::2]))  # lon, lat
+        if not slicks:
+            raise ValueError(f"No slick polygons found in {gmlfile}")
+
+        # a local equal-area-ish metric: metres per degree at mean latitude
+        lat0 = np.mean([la.mean() for _, la in slicks])
+        mx = 111320.0 * np.cos(np.radians(lat0))
+        my = 110540.0
+
+        def to_xy(lon, lat):
+            return lon * mx, lat * my
+
+        areas = []
+        for lon, lat in slicks:
+            x, y = to_xy(lon, lat)
+            areas.append(abs(np.sum(x * np.roll(y, -1)
+                                    - np.roll(x, -1) * y)) / 2.0)
+        deltax = np.sqrt(np.sum(areas) / num_elements)
+        lons_out, lats_out = [], []
+        for lon, lat in slicks:
+            x, y = to_xy(lon, lat)
+            xv = np.arange(x.min(), x.max(), deltax)
+            yv = np.arange(y.min(), y.max(), deltax)
+            if len(xv) == 0 or len(yv) == 0:
+                continue
+            gx, gy = np.meshgrid(xv, yv)
+            px, py = gx.ravel() / mx, gy.ravel() / my
+            inside = points_in_ring(px, py, np.column_stack([lon, lat]))
+            lons_out.append(px[inside])
+            lats_out.append(py[inside])
+        lons_out = np.concatenate(lons_out)
+        lats_out = np.concatenate(lats_out)
+        return self.seed_elements(lon=lons_out, lat=lats_out,
+                                  number=len(lons_out), time=oil_time,
+                                  **kwargs)
+
+    def seed_from_geotiff_thickness(self, filename, number=50000,
+                                    **kwargs):
+        """Seed oil from a categorical slick-thickness GeoTIFF (categories
+        1-4 as provided by C. Hu; reference openoil.py:1869-1958).
+
+        The reference polygonises with GDAL and seeds within the polygons;
+        without GDAL the same seeding is done on the pixels: per category
+        an element count of about area x thickness, each element placed
+        uniformly within a random pixel of that category, drawn from
+        ``self._np_random`` in the JAX package's order.
+        """
+        from datetime import datetime as _dt
+        from ...utils.geotiff import read_geotiff
+
+        time = kwargs.pop("time", None)
+        if time is None:
+            try:
+                time = _dt.strptime(filename[-28:-13], "%Y%m%d.%H%M%S")
+            except ValueError:
+                time = _dt.now()
+        data, (lon0, dlon, lat0, dlat) = read_geotiff(filename)
+        thickness_microns = np.array([0.04, 0.44, 4.4, 16.0])
+        ny, nx = data.shape
+        lat_of_row = lat0 + dlat * (np.arange(ny) + 0.5)
+        pixel_area = (abs(dlon) * 111320.0
+                      * np.cos(np.radians(lat_of_row))[:, None]
+                      * abs(dlat) * 110540.0)  # m2, (ny, 1)
+        total_area = np.array([
+            (pixel_area * (data == cat)).sum() for cat in (1, 2, 3, 4)])
+        weighted = total_area * thickness_microns
+        if weighted.sum() == 0:
+            raise ValueError(f"No slick pixels (categories 1-4) in "
+                             f"{filename}")
+        numbers = np.round(number * weighted / weighted.sum()).astype(int)
+        oil_density = 1000.0
+        mass_oil = total_area * thickness_microns / 1e6 * oil_density
+        for i, cat in enumerate((1, 2, 3, 4)):
+            if numbers[i] == 0:
+                continue
+            rows, cols = np.nonzero(data == cat)
+            pick = self._np_random.randint(0, len(rows), numbers[i])
+            jitter = self._np_random.uniform(0, 1, (numbers[i], 2))
+            lons = lon0 + dlon * (cols[pick] + jitter[:, 0])
+            lats = lat0 + dlat * (rows[pick] + jitter[:, 1])
+            self.seed_elements(
+                lon=lons, lat=lats, number=int(numbers[i]), time=time,
+                oil_film_thickness=float(thickness_microns[i]) / 1e6,
+                mass_oil=float(mass_oil[i] / numbers[i]), **kwargs)
+        return self
+
+    # ----------------------------------------------------------- plots ---
+    def plot_oil_budget(self, filename=None, show=False):
+        """Stacked oil mass budget plot (reference openoil.py:1342-1420)."""
+        plt = pyplot()
+        b = self.get_oil_budget()
+        times = np.asarray(self.result.coords["time"]) \
+            .astype("datetime64[s]")
+        hours = (times - times[0]) / np.timedelta64(1, "h")
+        layers = [("mass_dispersed", "Dispersed", "darkslategrey"),
+                  ("mass_submerged", "Submerged", "darkblue"),
+                  ("mass_surface", "Surface", "royalblue"),
+                  ("mass_evaporated", "Evaporated", "skyblue"),
+                  ("mass_biodegraded", "Biodegraded", "indianred")]
+        fig, ax = plt.subplots(figsize=(9, 5))
+        bottom = np.zeros_like(hours, dtype=float)
+        for key, label, color in layers:
+            vals = np.asarray(b[key], dtype=float)
+            ax.fill_between(hours, bottom, bottom + vals,
+                            label=label, color=color, alpha=0.85)
+            bottom = bottom + vals
+        ax.set_xlabel("Time [hours]")
+        ax.set_ylabel("Mass oil [kg]")
+        ax.set_xlim(hours[0], hours[-1])
+        ax.legend(loc="upper left", fontsize=8)
+        ax.set_title(f"Oil budget: {getattr(self, 'oil_name', 'oil')}")
+        if filename is not None:
+            fig.savefig(filename, dpi=120, bbox_inches="tight")
+            plt.close(fig)
+        elif show:
+            plt.show()
+        return fig, ax
+
+    def plot_droplet_spectrum(self, filename=None):
+        """Histogram of the droplet radii at the last output (reference
+        openoil.py:817)."""
+        plt = pyplot()
+        dia = np.asarray(self.result["diameter"])[:, -1] \
+            if self.result is not None and "diameter" in self.result \
+            else None
+        fig, ax = plt.subplots()
+        if dia is not None:
+            ax.hist(dia[np.isfinite(dia)] / 2.0, bins=50)
+        ax.set_xlabel("Droplet radius [m]")
+        ax.set_ylabel("Number")
+        if filename:
+            fig.savefig(filename, dpi=100)
+            plt.close(fig)
+        else:
+            return fig
+
+    def plot_oil_watercontent_and_viscosity(self, filename=None):
+        """Time series of the emulsion's viscosity, density and water
+        content (reference openoil.py:1469-1520)."""
+        plt = pyplot()
+        ds = self.result
+        times = np.asarray(ds.coords["time"], dtype="datetime64[s]")
+        hours = (times - times[0]) / np.timedelta64(1, "h")
+        kin = np.asarray(ds["viscosity"])
+        rho = np.asarray(ds["density"])
+        dyn = kin * rho * 1000.0                       # mPa s
+        wc = np.asarray(ds["water_fraction"]) * 100.0
+        fig, axs = plt.subplots(3, 1, sharex=True, figsize=(7, 8))
+        for ax, (label, arr) in zip(axs, [
+                ("Dynamic viscosity [mPa s]", dyn),
+                ("Density [kg/m3]", rho),
+                ("Water content [%]", wc)]):
+            mean = np.nanmean(arr, axis=0)
+            std = np.nanstd(arr, axis=0)
+            ax.plot(hours, mean)
+            ax.fill_between(hours, mean - std, mean + std, alpha=0.3)
+            ax.set_ylabel(label)
+        axs[-1].set_xlabel("Hours since start")
+        if filename:
+            fig.savefig(filename, dpi=100)
+            plt.close(fig)
+        else:
+            return fig

@@ -13,6 +13,8 @@ from datetime import timedelta
 
 import numpy as np
 
+from ..utils.plotting import colormap
+
 logger = logging.getLogger(__name__)
 
 
@@ -175,11 +177,39 @@ class PostProcessingMixin:
             f.close()
 
     def write_geotiff(self, filename, pixelsize_km=0.2):
-        """One georeferenced TIFF per time step (reference
-        basemodel/__init__.py:4444-4504; matplotlib and PIL): the plots
-        come with ROADMAP A.13."""
-        raise NotImplementedError(
-            "write_geotiff is not ported yet (ROADMAP A.13)")
+        """Write one georeferenced TIFF per time step (reference
+        basemodel/__init__.py:4444-4504).  Without GDAL each frame is a
+        plain RGBA TIFF (matplotlib's viridis, written by Pillow) plus an
+        ESRI world file (.tfw) and a .prj, the georeferencing every GIS
+        accepts."""
+        from PIL import Image
+        cmap = colormap("viridis")
+        H, lon_c, lat_c = self.get_histogram(pixelsize_m=pixelsize_km
+                                             * 1000.0)
+        H = H.sum(axis=-1)  # collapse origin markers
+        times = np.asarray(self.result.coords["time"]) \
+            .astype("datetime64[s]").tolist()
+        written = []
+        for ti, when in enumerate(times):
+            fname = when.strftime(filename) if "%" in filename \
+                else filename.replace(".tif", f"_{ti:04d}.tif")
+            h = H[ti].T[::-1]  # (lat desc, lon) image orientation
+            hn = h / max(h.max(), 1)
+            rgba = (cmap(hn) * 255).astype(np.uint8)
+            rgba[..., 3] = np.where(h > 0, 255, 0)
+            Image.fromarray(rgba).save(fname)
+            dlon = lon_c[1] - lon_c[0] if len(lon_c) > 1 else 1e-3
+            dlat = lat_c[1] - lat_c[0] if len(lat_c) > 1 else 1e-3
+            with open(fname[:-4] + ".tfw", "w") as fw:
+                fw.write(f"{dlon}\n0.0\n0.0\n{-dlat}\n"
+                         f"{lon_c[0]}\n{lat_c[-1]}\n")
+            with open(fname[:-4] + ".prj", "w") as fp:
+                fp.write('GEOGCS["WGS 84",DATUM["WGS_1984",'
+                         'SPHEROID["WGS 84",6378137,298.257223563]],'
+                         'PRIMEM["Greenwich",0],'
+                         'UNIT["degree",0.0174532925199433]]')
+            written.append(fname)
+        return written
 
     def get_residence_time(self, pixelsize_m):
         """Accumulated element counts over the run

@@ -21,6 +21,7 @@ from .. import rng
 from ..config import CONFIG_LEVEL_ADVANCED, CONFIG_LEVEL_ESSENTIAL
 from ..ops.speciation import speciation_step
 from ..ops import physics as ph
+from ..utils.plotting import pyplot, use_agg
 from .oceandrift import OceanDrift, Lagrangian3DArray
 
 logger = logging.getLogger(__name__)
@@ -600,15 +601,53 @@ class RadionuclideDrift(OceanDrift):
                     filename)
 
     def guipp_showanimationprofile(self, filename=None, **kwargs):
-        """Profile animation coloured by specie (reference
-        radionuclides.py:1622-1628): the plots come with ROADMAP A.13."""
-        raise NotImplementedError(
-            "guipp_showanimationprofile is not ported yet (ROADMAP A.13)")
+        """Profile animation coloured by specie with a categorical legend
+        (reference radionuclides.py:1622-1628)."""
+        return self.animation_profile(
+            filename=filename, color="specie", vmin=0,
+            vmax=self.nspecies - 1,
+            legend=[self.specie_num2name(i)
+                    for i in range(self.nspecies)],
+            legend_loc=3, **kwargs)
 
     def guipp_plotandsaveconc(self, filename, outfilename, zlayers=None,
                               specie=None):
-        """Per-specie concentration maps from a saved density file
-        (reference radionuclides.py:1635-1740): the plots come with
-        ROADMAP A.13."""
-        raise NotImplementedError(
-            "guipp_plotandsaveconc is not ported yet (ROADMAP A.13)")
+        """Per-specie concentration maps from a saved density file, one PNG
+        per (specie, layer, time) (reference radionuclides.py:1635-1740
+        ``guipp_plotandsaveconc``; plain matplotlib, no cartopy)."""
+        from scipy.io import netcdf_file
+        use_agg()
+        plt = pyplot()
+        if zlayers is None:
+            zlayers = [0]
+        if specie is None:
+            specie_arr = ["Total"] + list(self.name_species[:2])
+        else:
+            specie_arr = list(specie)
+        f = netcdf_file(filename, "r", mmap=False)
+        try:
+            dens = np.asarray(f.variables["density"][:])  # (t,s,z,lon,lat)
+            lon = np.asarray(f.variables["lon"][:])
+            lat = np.asarray(f.variables["lat"][:])
+        finally:
+            f.close()
+        written = []
+        for sp in specie_arr:
+            if sp == "Total":
+                field_t = dens.sum(axis=1)
+            else:
+                field_t = dens[:, self.specie_name2num(sp)]
+            for zi in zlayers:
+                for ti in range(field_t.shape[0]):
+                    fig, ax = plt.subplots()
+                    im = ax.pcolormesh(lon, lat, field_t[ti, zi].T,
+                                       cmap="CMRmap_r", shading="auto")
+                    plt.colorbar(im, ax=ax, label="elements")
+                    ax.set_title(f"{sp}  layer {zi}  frame {ti}")
+                    out = f"{outfilename}_{sp.replace(' ', '_')}" \
+                          f"_z{zi}_t{ti:03d}.png"
+                    fig.savefig(out, dpi=90)
+                    plt.close(fig)
+                    written.append(out)
+        logger.info("Wrote %d concentration plots", len(written))
+        return written

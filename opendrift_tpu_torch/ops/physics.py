@@ -9,8 +9,8 @@ XLA lowers integer powers), so both packages round alike.  With OpenOil
 came the wave breaking and energy terms and the sea-water density and
 viscosity; with the model zoo the fetch-tabulated Stokes drift and wave
 height, the wind drag law and its inverse, the LADiM viscosity and the
-solar geometry.  ``plot_stokes_profile`` comes with the plots (ROADMAP
-A.13).
+solar geometry; and ``plot_stokes_profile``, a host-side matplotlib
+diagnostic that imports matplotlib when called.
 """
 
 import math
@@ -388,3 +388,40 @@ def solar_elevation_time(time, longitude, latitude, device=None):
                 device)
     return solar_elevation(doy, mins, _f32(longitude, device),
                            _f32(latitude, device))
+
+
+def plot_stokes_profile(profiles, view=("vertical",), filename=None):
+    """Plot Stokes-drift profiles: a list of dicts with keys ``u``, ``v``,
+    ``z`` (host arrays or tensors) and optional ``kwargs`` (reference
+    physics_methods.py:259-325).  Host-side matplotlib diagnostic."""
+    from ..utils.plotting import pyplot
+    plt = pyplot()
+
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    fig, axes = plt.subplots(1, len(view), squeeze=False)
+    for ax, kind in zip(axes[0], view):
+        for p in profiles:
+            u, v, z = host(p["u"]), host(p["v"]), host(p["z"])
+            kw = p.get("kwargs", {})
+            if kind == "vertical":
+                ax.plot(np.hypot(u, v), z, **kw)
+                ax.set_xlabel("Stokes speed [m/s]")
+                ax.set_ylabel("z [m]")
+            elif kind == "birdseye":
+                ax.plot(u, v, **kw)
+                ax.set_xlabel("u [m/s]")
+                ax.set_ylabel("v [m/s]")
+            elif kind == "u":
+                ax.plot(u, z, **kw)
+                ax.set_xlabel("u [m/s]")
+                ax.set_ylabel("z [m]")
+            elif kind == "v":
+                ax.plot(v, z, **kw)
+                ax.set_xlabel("v [m/s]")
+                ax.set_ylabel("z [m]")
+        ax.grid(True)
+    if filename is not None:
+        fig.savefig(filename, dpi=110, bbox_inches="tight")
+        plt.close(fig)
+    return fig

@@ -4,13 +4,14 @@ The port's copy of ``opendrift_tpu/utils/trajectory.py``.  Counterpart
 of the observation-fitting helpers in the reference's physics library
 (reference: opendrift/models/physics_methods.py:28-113
 ``wind_drift_factor_from_trajectory`` and the polar-histogram plot
-``plot_wind_drift_factor``, which comes with the plots).  Geodesic steps
+``plot_wind_drift_factor``, which imports matplotlib when called).  Geodesic steps
 use the package's own Vincenty implementation instead of pyproj.
 """
 
 import numpy as np
 
 from . import geodesic
+from .plotting import pyplot
 
 
 def wind_drift_factor_from_trajectory(trajectory_dict, min_period=None):
@@ -61,10 +62,23 @@ def wind_drift_factor_from_trajectory(trajectory_dict, min_period=None):
 
 def plot_wind_drift_factor(wdf, azimuth, wmax_plot=None, show=True):
     """Polar histogram of fitted wind drift factors vs azimuthal offset
-    (reference: physics_methods.py:96-113): the plots come with ROADMAP
-    A.13."""
-    raise NotImplementedError(
-        "plot_wind_drift_factor is not ported yet (ROADMAP A.13)")
+    (reference: physics_methods.py:96-113)."""
+    plt = pyplot()
+    wmax = float(np.max(wdf))
+    wbins = np.arange(0, wmax + 0.005, 0.005)
+    abins = np.linspace(-180, 180, 30)
+    hist, _, _ = np.histogram2d(azimuth, wdf, bins=(abins, wbins))
+    A, W = np.meshgrid(abins, wbins)
+    fig, ax = plt.subplots(subplot_kw=dict(projection="polar"))
+    ax.set_theta_zero_location("N", offset=0)
+    ax.set_theta_direction(-1)
+    ax.pcolormesh(np.radians(A), W, hist.T, cmap="viridis")
+    ax.grid(True)
+    if wmax_plot is not None:
+        ax.set_ylim([0, wmax_plot])
+    if show:
+        plt.show()
+    return fig, ax
 
 
 def distance_between_trajectories(lon1, lat1, lon2, lat2):

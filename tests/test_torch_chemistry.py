@@ -399,14 +399,19 @@ def test_summary_and_plot_stub(chem_pair, capsys):
     ot.simulation_summary()
     assert capsys.readouterr().out == want
     assert "Final speciation" in want
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ot.plot_mass()
+    # the plot is ported: it draws the three bands of the budget
+    import matplotlib
+    matplotlib.use("Agg")
+    fig = ot.plot_mass()
+    assert [t.get_text() for t in fig.axes[0].get_legend().get_texts()] \
+        == ["active", "degraded", "volatilized"]
+    assert len(fig.axes[0].collections) == 3
 
 
 def test_radionuclide_density_map_and_gui_postproc(tmp_path):
     """The radionuclide density map and the GUI's post-processing against
-    the JAX package's on the same configuration; the two plots raise
-    naming A.13."""
+    the JAX package's on the same configuration; the two GUI plots draw
+    from it (their artists: tests/test_torch_plots.py)."""
     from scipy.io import netcdf_file
     oj = _chem_run("jax", "radionuclide_137Cs")
     ot = _chem_run("torch", "radionuclide_137Cs")
@@ -422,10 +427,15 @@ def test_radionuclide_density_map_and_gui_postproc(tmp_path):
     assert files[1].variables["density"][:].sum() > 0
     for f in files:
         f.close()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ot.guipp_showanimationprofile()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ot.guipp_plotandsaveconc("in.nc", "out")
+    import matplotlib
+    matplotlib.use("Agg")
+    pngs = [o.guipp_plotandsaveconc(str(tmp_path / f"radio_{tag}.nc"),
+                                    str(tmp_path / tag), zlayers=[0])
+            for o, tag in ((oj, "jax"), (ot, "port"))]
+    assert len(pngs[1]) == len(pngs[0]) > 0
+    assert all(os.path.exists(p) for p in pngs[1])
+    anim = ot.guipp_showanimationprofile()
+    assert anim._save_count == ot.result.dims["time"]
 
 
 def test_seed_from_dataarray_with_datetime64_matches_jax():

@@ -136,8 +136,13 @@ def test_grid_and_helpers_match_jax():
     f[4, 4] = 1.0
     for a, b in zip(T.grad2d(f, 1.0, 1.0), J.grad2d(f, 1.0, 1.0)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        gt.plot()
+    # the plot is ported: the field, brought to the host, as an image
+    import matplotlib
+    matplotlib.use("Agg")
+    image = gt.plot().get_images()[0]
+    np.testing.assert_array_equal(image.get_array(),
+                                  gj.plot().get_images()[0].get_array())
+    assert image.get_extent() == [gt.x[0], gt.x[-1], gt.y[0], gt.y[-1]]
 
 
 def test_stability_warns_on_large_dt(caplog):

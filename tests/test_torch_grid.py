@@ -421,7 +421,7 @@ def test_environment_get_profiles_matches_jax():
     lon, lat, _ = _positions()
     out = {}
     for pkg, env, cls in (("jax", JEnv(required), JArrayReader),
-                          ("torch", TEnv(required, "cpu"), TArrayReader)):
+                          ("torch", TEnv(required, device="cpu"), TArrayReader)):
         env.add_reader(cls(current, x, y, times, depths=depths))
         env.finalize(T0, required_profiles=names)
         env.prepare_readers(extent=(3.5, 59.4, 4.5, 60.1), start_time=T0,

@@ -130,6 +130,92 @@ def test_the_chemistry_slice_is_covered():
             assert a.read() == b.read(), table
 
 
+def test_the_surface_plot_and_script_slice_is_covered():
+    """The plots, the GeoTIFF and GML seeders' modules and the scripts are
+    among the sources checked above (and so import neither JAX nor the JAX
+    package), and the port carries its own byte copy of the default data
+    sources' list."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for name in ("models/plot.py", "utils/plotting.py", "utils/geotiff.py",
+                 "tools/synthetic_tiff.py", "scripts/__init__.py",
+                 "scripts/opendrift_plot.py", "scripts/opendrift_animate.py",
+                 "scripts/readerinfo.py", "scripts/hodograph.py",
+                 "scripts/gui.py"):
+        assert name in have, name
+    with open(os.path.join(PORT, "scripts", "data_sources.txt"), "rb") as a, \
+            open(os.path.join(REPO, "opendrift_tpu", "scripts",
+                              "data_sources.txt"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def _smoke_imports():
+    """The port's modules that chip_smoke.py imports (at any depth of its
+    functions)."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module.startswith("opendrift_tpu_torch"):
+            mods.add(node.module)
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+        elif isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names
+                        if a.name.startswith("opendrift_tpu_torch"))
+    return sorted(mods)
+
+
+def test_the_card_path_imports_no_matplotlib(tmp_path):
+    """matplotlib is not on the card machine: in a fresh process, importing
+    every port module chip_smoke.py imports, seeding OpenOil from a GeoTIFF
+    and from a GML, running the readerinfo script and a GUI controller's
+    run leaves matplotlib out of ``sys.modules``."""
+    mods = _smoke_imports()
+    assert "opendrift_tpu_torch.tools.synthetic_tiff" in mods
+    assert "opendrift_tpu_torch.scripts.gui" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except ModuleNotFoundError:\n"
+        "        pass   # a name imported from a module, not a module\n"
+        "from datetime import datetime\n"
+        "import numpy as np\n"
+        "from opendrift_tpu_torch.tools import synthetic_tiff as st\n"
+        "from opendrift_tpu_torch.models import OpenOil\n"
+        f"tif, gml = {str(tmp_path / 's.tif')!r}, "
+        f"{str(tmp_path / 's.gml')!r}\n"
+        "st.write_geotiff(tif, st.slick_categories((60, 50)), 4.0, 60.0,\n"
+        "                 0.001, 0.0005)\n"
+        "st.write_gml(gml, st.slick_polygons(4.0, 60.0, 3000.0),\n"
+        "             datetime(2024, 3, 1))\n"
+        "o = OpenOil(loglevel=40, device='cpu')\n"
+        "o.seed_from_geotiff_thickness(tif, number=500,\n"
+        "                              time=datetime(2024, 3, 1))\n"
+        "o.seed_from_gml(gml, num_elements=500)\n"
+        "from opendrift_tpu_torch.scripts import readerinfo\n"
+        "readerinfo.main(['constant://x_wind=1', '--device', 'cpu'])\n"
+        "from opendrift_tpu_torch.scripts.gui import GuiController\n"
+        "c = GuiController(device='cpu')\n"
+        "c.select_model('OceanDrift')\n"
+        "s = c.simulation\n"
+        "s.set_config('environment:fallback:land_binary_mask', 0)\n"
+        "s.set_config('environment:fallback:x_sea_water_velocity', 0.1)\n"
+        "s.set_config('environment:fallback:y_sea_water_velocity', 0.0)\n"
+        "c.run(lon=4.0, lat=60.0, number=20, duration_hours=1,\n"
+        "      time_step=1800, start_time=datetime(2024, 3, 1),\n"
+        "      log=lambda m: None)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('matplotlib', 'jax',\n"
+        "                                    'opendrift_tpu'))\n"
+        "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout[-500:]
+
+
 def test_chemicaldrift_seeds_from_datetime64_without_pandas():
     """pandas is not on the card machine: with it unimportable,
     ChemicalDrift imports and seeds from a discharge field whose times are
@@ -216,7 +302,8 @@ def test_netcdf4_without_h5py_names_it(tmp_path, monkeypatch):
 
 def test_no_module_imports_matplotlib_at_module_level():
     """matplotlib is not on the card machine: a port module imports it
-    only inside the function that needs it (``seed_letters``)."""
+    only inside the function that needs it (``seed_letters``, the plots
+    through ``utils/plotting.py``)."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), filename=path)

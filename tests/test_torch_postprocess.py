@@ -17,6 +17,7 @@ with their ridges (the top 5% of the field) in the same cells but for
 1e-12 relative.
 """
 
+import os
 from datetime import datetime, timedelta
 
 import numpy as np
@@ -134,8 +135,18 @@ def test_density_arrays_and_files(gyre_runs, tmp_path):
             assert total == pytest.approx(400 * ot.result.dims["time"])
         for f in files:
             f.close()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ot.write_geotiff(str(tmp_path / "g.tif"))
+    # write_geotiff is ported: one TIFF, world file and .prj a step, as
+    # the JAX package writes (their pixels: tests/test_torch_plots.py)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    want = oj.write_geotiff(str(tmp_path / "jax" / "g.tif"),
+                            pixelsize_km=20.0)
+    got = ot.write_geotiff(str(tmp_path / "port" / "g.tif"),
+                           pixelsize_km=20.0)
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want]
+    assert len(got) == ot.result.dims["time"]
+    assert all(os.path.exists(p[:-4] + ".tfw") for p in got)
 
 
 def test_residence_time_and_center_of_gravity(gyre_runs):
@@ -232,8 +243,13 @@ def test_wind_drift_factor_matches_jax(min_period):
     clean = T.wind_drift_factor_from_trajectory(_synthetic_trajectory(0.03))
     assert np.allclose(clean[0], 0.03, atol=1e-6)
     assert np.all(np.abs(clean[1]) < 0.1)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        T.plot_wind_drift_factor(*clean)
+    # the polar histogram is ported (its artists: tests/test_torch_plots.py)
+    import matplotlib
+    matplotlib.use("Agg")
+    fig, ax = T.plot_wind_drift_factor(*clean, show=False)
+    jfig, jax_ = J.plot_wind_drift_factor(*clean, show=False)
+    np.testing.assert_array_equal(ax.collections[0].get_array(),
+                                  jax_.collections[0].get_array())
 
 
 def test_distances_lengths_and_skill_score_match_jax():

@@ -245,8 +245,17 @@ def test_leeway_ascii_export_and_the_plot_still_to_come(tmp_path):
     JLeeway.export_ascii(o, str(theirs))
     assert mine.read_text() == theirs.read_text()
     assert mine.read_text().count("Time step") == 4
-    with pytest.raises(NotImplementedError, match="A.13"):
-        o.plot_capsize_probability()
+    # the plot is ported: the probability curve of the JAX package's
+    import matplotlib
+    matplotlib.use("Agg")
+    line = o.plot_capsize_probability().axes[0].get_lines()[0]
+    jl = JLeeway(loglevel=40)
+    for key in ("capsizing:wind_threshold", "capsizing:wind_threshold_sigma"):
+        jl.set_config(key, o.get_config(key))
+    want = jl.plot_capsize_probability().axes[0].get_lines()[0]
+    np.testing.assert_array_equal(line.get_xdata(), want.get_xdata())
+    np.testing.assert_allclose(line.get_ydata(), want.get_ydata(),
+                               rtol=0, atol=1e-6)
 
 
 # -------------------------------------------------------------- goldens --
@@ -537,8 +546,9 @@ def test_ml_correction_matches_jax():
 
 def test_get_model_names_the_zoo():
     """Every model of the JAX package's registry resolves to the port's
-    class, ``eulerdrift`` imports, and what is still to come are the plots
-    (A.13), which raise naming their item."""
+    class and ``eulerdrift`` imports; the plots that raised naming A.13
+    draw now, and what is still to come is the domain decomposition
+    (A.14), whose one stub raises naming its item."""
     import opendrift_tpu
     import opendrift_tpu_torch
     from opendrift_tpu_torch.models import eulerdrift
@@ -556,9 +566,18 @@ def test_get_model_names_the_zoo():
     o = opendrift_tpu_torch.get_model("ChemicalDrift")(loglevel=40,
                                                        device="cpu")
     grid = eulerdrift.EulerGrid.new(shape=(8, 8), device="cpu")
-    for stub in (o.plot_mass, grid.plot, lambda: o.write_geotiff("x.tif")):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            stub()
+    import matplotlib
+    matplotlib.use("Agg")
+    assert grid.plot().get_images()[0].get_array().shape == (8, 8)
+    from opendrift_tpu_torch.fields import ArrayReader
+    reader = ArrayReader({"x_sea_water_velocity":
+                          np.zeros((2, 3, 4), np.float32)},
+                         np.arange(4.0), np.arange(3.0) + 60.0,
+                         [T0, T0 + timedelta(hours=1)])
+    pos = torch.zeros(2)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        reader.sample({"packed_deferred": None}, ["x_sea_water_velocity"],
+                      np.float32(0.0), pos, pos + 60.0, pos)
     with pytest.raises(ValueError):
         opendrift_tpu_torch.get_model("NoSuchModel")
 
