@@ -175,7 +175,28 @@ printing its own line:
 11. scripts: ``python -m opendrift_tpu_torch.scripts.readerinfo`` on the
    NetCDF path's ocean file, and the GUI's ``GuiController`` running
    OceanDrift on that file at 100,000 elements on the card (checked: both
-   end cleanly, the result holds every element, no matplotlib loaded).
+   end cleanly, the result holds every element, no matplotlib loaded);
+12. the parallel layer on one card, four tiles on ``cuda:0``
+   (``set_mesh(["cuda:0"] * 4)``): ``dd_path``, the main path's run with
+   ``parallel:domain_decomposition`` in 4 Y bands (one untimed interval,
+   three timed, then one with 'constant' diffusivity through the profile
+   kernel in every tile) and in 2 x 2 tiles (one timed interval); checked:
+   the windspeed kernel 4 x 30 times in the timed run, every element ID
+   exactly once in every frame, nothing valid NaN, the final lon/lat/z
+   spread and moments against the plain main path's run (the JAX package's
+   statistical bounds, tests/test_engine_dd.py); printed: the halo in rows
+   and columns, the slots and peak occupancy of a tile, halo and
+   migration ms (CUDA events), leavers a step, the rates, peak memory;
+   ``dd_against_plain``: 2M elements with no mixing or diffusion, tiled
+   ("auto", "2x2") against the plain run at atol 2e-5 on lon/lat, every
+   status equal; ``sharded_path``: particle sharding over the four tiles
+   at 2M, mixing and diffusion on, bit-equal to the plain run;
+   ``dd_card_against_cpu``: 4,096 elements in four tiles on the card and
+   on the CPU (every status equal, the slice tolerance);
+   ``multiprocess_dd``: ``opendrift_tpu_torch/tools/multihost_dryrun.py``
+   on the card, 2 processes x 2 tiles over gloo (NCCL refuses two ranks on
+   one card), bit-equal to one process of 4 tiles in both modes, the
+   merged sharded output equal to the plain file byte for byte.
 
 Then the seconds of each phase, one JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -843,6 +864,8 @@ def main_path():
         wind_tier=wind_tier, active_share=active,
         launches=launches["visser_mixing"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **stats)
+    # the final positions' spread, for the tiled run of the same setting
+    stats["final"] = final_moments(o)
     if launches["visser_mixing"] == 0:
         raise AssertionError("the main path never launched visser_mixing")
     profile_interval(o)
@@ -861,6 +884,20 @@ def main_path():
             "the constant-diffusivity path never launched "
             "visser_mixing_profile")
     return launches, stats
+
+
+def final_moments(o):
+    """The final lon/lat spread in metres and the final z mean and spread
+    of the active elements, as tests/test_engine_dd.py judges a tiled
+    run's statistics."""
+    lon = np.asarray(o.result["lon"].values)[:, -1]
+    lat = np.asarray(o.result["lat"].values)[:, -1]
+    z = np.asarray(o.result["z"].values)[:, -1]
+    ok = np.asarray(o.result["status"].values)[:, -1] == 0
+    coslat = np.cos(np.radians(np.nanmean(lat[ok])))
+    return {"lon_spread_m": float(np.std(lon[ok]) * 111320.0 * coslat),
+            "lat_spread_m": float(np.std(lat[ok]) * 111320.0),
+            "z_mean": float(np.mean(z[ok])), "z_std": float(np.std(z[ok]))}
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -3112,6 +3149,251 @@ def sampler_card_against_cpu(n=4096, intervals=2):
 
 # ---------------------------------------------------------------- main ----
 
+# ------------------------------------------------------------ phase 12 ----
+
+DD_TILES = ["cuda:0"] * 4
+
+
+def dd_simulation(device, n, tile_grid="auto", model="windspeed_Large1994",
+                  hdiff=10.0, forcing_kw=None, mixing=True, tiles=None):
+    """The main path's run (:func:`simulation`) with
+    ``parallel:domain_decomposition`` over four tiles of ``device``."""
+    o = simulation(device, n, model, hdiff=hdiff, forcing_kw=forcing_kw)
+    o.set_config("drift:vertical_mixing", mixing)
+    o.set_config("parallel:domain_decomposition", True)
+    o.set_config("parallel:tile_grid", tile_grid)
+    o.set_mesh(tiles or ([f"{device}:0"] * 4 if device == "cuda"
+                         else [device] * 4))
+    return o
+
+
+def run_intervals(o, intervals, export=("lon", "lat", "z", "status")):
+    """One ``run`` of ``intervals`` output intervals of K = 10 steps;
+    returns the seconds (host clock, synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+          time_step_output=9000, export_variables=list(export))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def check_tiled(o, n, frames, name):
+    """Every element ID exactly once in every frame, nothing valid NaN."""
+    dd = o._dd
+    assert dd is not None and dd.n_tiles == 4, f"{name}: not tiled"
+    bad = [c for c in dd.id_checks if c != (0, 0)]
+    if len(dd.id_checks) != frames or bad:
+        raise AssertionError(f"{name}: element IDs not held once a frame: "
+                             f"{len(dd.id_checks)} frames, {bad[:3]}")
+    status = np.asarray(o.result["status"].values)
+    assert status.shape == (n, frames), status.shape
+    valid = status >= 0
+    for var in ("lon", "lat", "z"):
+        v = np.asarray(o.result[var].values)
+        if np.isnan(v[valid & (status == 0)]).any():
+            raise AssertionError(f"{name}: NaN {var} of an active element")
+
+
+def dd_run_stats(o, n, steps, secs):
+    dd = o._dd
+    st = dd.stats()
+    loop = o.timers["main loop"]
+    readers = o.timers.get("main loop:readers", 0.0)
+    return {"elements": n, "steps": steps, "run_s": secs,
+            "main_loop_s": loop, "readers_s": readers,
+            "particle_steps_per_s": n * steps / secs,
+            "particle_steps_per_s_steps_only": n * steps / (loop - readers),
+            "tiles": dd.n_tiles, "tile_grid": [dd.n_ty, dd.n_tx],
+            "rows": dd.rows, "cols": dd.cols, "halo_rows": dd.halo,
+            "halo_cols": dd.halo_x, "slots_per_tile": dd.cap,
+            "peak_occupancy": st["peak_occupancy"],
+            "halo_ms_per_window": st["halo_ms_per_window"],
+            "migrate_ms_per_step": st["migrate_ms_per_step"],
+            "leavers_per_step": st["leavers_per_step"],
+            "in_transit": dd.last_in_transit}
+
+
+def dd_path(plain_final, n=2_000_000):
+    """The main path's 2M-element run over four tiles on the card: 4 Y
+    bands (one untimed interval, three timed, one 'constant'), then 2 x 2
+    tiles (one timed interval).  Returns the windspeed and profile
+    kernels' launches and the 4-band timed run's numbers."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    kernels = (mixing.visser_mixing, mixing.visser_mixing_profile)
+    o = dd_simulation("cuda", n)
+    run_intervals(o, 1)                          # untimed: one-time costs
+    check_tiled(o, n, 2, "dd_path untimed")
+    del o
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    o = dd_simulation("cuda", n)
+    secs = run_intervals(o, 3)
+    launches = mixing.visser_mixing.launches
+    check_tiled(o, n, 4, "dd_path")
+    stats = dd_run_stats(o, n, 30, secs)
+    final = final_moments(o)
+    log("dd_path", model="windspeed_Large1994", launches=launches,
+        profile_launches=mixing.visser_mixing_profile.launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        final=final, plain_final=plain_final, **stats)
+    if launches != 4 * 30:
+        raise AssertionError(f"dd_path: {launches} windspeed launches, "
+                             "not 4 tiles x 30 steps")
+    # tests/test_engine_dd.py's statistical bounds against the plain run
+    for var in ("lon_spread_m", "lat_spread_m"):
+        rel = abs(final[var] - plain_final[var]) / plain_final[var]
+        if rel >= 0.35:
+            raise AssertionError(f"dd_path: {var} {final[var]} against "
+                                 f"{plain_final[var]} plain")
+    for var in ("z_mean", "z_std"):
+        if abs(final[var] - plain_final[var]) >= 2.0:
+            raise AssertionError(f"dd_path: {var} {final[var]} against "
+                                 f"{plain_final[var]} plain")
+    del o
+    for k in kernels:
+        k.launches = 0
+    o = dd_simulation("cuda", n, model="constant")
+    run_intervals(o, 1)
+    profile_launches = mixing.visser_mixing_profile.launches
+    check_tiled(o, n, 2, "dd_path constant")
+    log("dd_path", model="constant", launches=profile_launches,
+        windspeed_launches=mixing.visser_mixing.launches,
+        **dd_run_stats(o, n, 10, o.timers["main loop"]))
+    if profile_launches != 4 * 10:
+        raise AssertionError(f"dd_path: {profile_launches} profile "
+                             "launches, not 4 tiles x 10 steps")
+    del o
+    o = dd_simulation("cuda", n, tile_grid="2x2")
+    secs = run_intervals(o, 1)
+    check_tiled(o, n, 2, "dd_path 2x2")
+    log("dd_path", model="windspeed_Large1994",
+        **dd_run_stats(o, n, 10, secs))
+    return launches, profile_launches, stats
+
+
+def dd_against_plain(n=2_000_000):
+    """Deterministic 2M-element runs (no mixing, no diffusion) tiled in 4
+    Y bands and in 2 x 2 tiles against the plain run on the card, at the
+    JAX package's own tolerance (tests/test_engine_dd.py)."""
+    res = {}
+    for grid in (None, "auto", "2x2"):
+        if grid is None:
+            o = simulation("cuda", n, "windspeed_Large1994", hdiff=0.0)
+            o.set_config("drift:vertical_mixing", False)
+        else:
+            o = dd_simulation("cuda", n, grid, hdiff=0.0, mixing=False)
+        secs = run_intervals(o, 1)
+        if grid is not None:
+            check_tiled(o, n, 2, f"dd_against_plain {grid}")
+        res[grid] = ({v: np.asarray(o.result[v].values)
+                      for v in ("lon", "lat", "status")}, secs)
+        del o
+    plain = res[None][0]
+    for grid in ("auto", "2x2"):
+        got, secs = res[grid]
+        err = {v: float(np.nanmax(np.abs(got[v] - plain[v])))
+               for v in ("lon", "lat")}
+        same_status = bool(np.array_equal(got["status"], plain["status"]))
+        log("dd_against_plain", tile_grid=grid, elements=n, steps=10,
+            max_abs_err=err, status_equal=same_status, run_s=secs,
+            plain_run_s=res[None][1])
+        if not same_status or max(err.values()) > 2e-5:
+            raise AssertionError(f"dd_against_plain {grid}: {err}, "
+                                 f"status equal {same_status}")
+
+
+def sharded_path(n=2_000_000, intervals=2):
+    """Particle sharding over four tiles of the card at 2M elements, mixing
+    and diffusion on: bit-equal to the plain run of the same seed."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing
+    out = {}
+    for sharded in (True, False):
+        o = simulation("cuda", n, "windspeed_Large1994", hdiff=10.0)
+        if sharded:
+            o.set_mesh(DD_TILES)
+        mixing.visser_mixing.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        secs = run_intervals(o, intervals)
+        loop = o.timers["main loop"]
+        readers = o.timers.get("main loop:readers", 0.0)
+        assert (o._sharding is not None) == sharded
+        out[sharded] = (
+            {v: np.asarray(o.result[v].values)
+             for v in ("lon", "lat", "z", "status")},
+            {"run_s": secs, "particle_steps_per_s": n * 10 * intervals / secs,
+             "particle_steps_per_s_steps_only":
+                 n * 10 * intervals / (loop - readers),
+             "launches": mixing.visser_mixing.launches,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del o
+    equal = {v: bool(np.array_equal(out[True][0][v], out[False][0][v],
+                                    equal_nan=True))
+             for v in out[True][0]}
+    log("sharded_path", elements=n, steps=10 * intervals, tiles=4,
+        bit_equal=equal, sharded=out[True][1], plain=out[False][1])
+    if not all(equal.values()):
+        raise AssertionError(f"sharded_path: not bit-equal: {equal}")
+    if out[True][1]["launches"] != 4 * 10 * intervals:
+        raise AssertionError("sharded_path: the windspeed kernel did not "
+                             "run once a tile and step")
+    return out[True][1]
+
+
+def dd_card_against_cpu(n=4096, intervals=2):
+    """The tiled run with mixing and diffusion, small, on four tiles of the
+    card and on four CPU tiles: every status equal, the slice tolerance."""
+    small = dict(nx=60, ny=60, nz=16, nt=5)
+    out = {}
+    for device in ("cuda", "cpu"):
+        o = dd_simulation(device, n, forcing_kw=small)
+        o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
+              time_step_output=9000)
+        check_tiled(o, n, intervals + 1, f"dd_card_against_cpu {device}")
+        out[device] = o.result
+    same_status = bool(np.array_equal(out["cuda"]["status"].values,
+                                      out["cpu"]["status"].values))
+    errs = {}
+    for var in ("lon", "lat", "z"):
+        err, ok = agree(out["cuda"][var].values, out["cpu"][var].values,
+                        SLICE_MEDIAN_ATOL[var], SLICE_OUTLIER_ATOL[var],
+                        SLICE_OUTLIER_SHARE)
+        errs[var] = err
+        if not ok:
+            raise AssertionError(f"dd card and CPU disagree on {var}: {err}")
+    log("dd_card_vs_cpu", elements=n, intervals=intervals, tiles=4,
+        status_equal=same_status, max_abs_err=errs)
+    if not same_status:
+        raise AssertionError("dd card and CPU differ in status")
+
+
+def multiprocess_dd(workdir, n=4096):
+    """The port's multi-process dry run on the card: 2 processes x 2 tiles
+    of cuda:0 over gloo against one process of 4 tiles, both modes, and
+    the sharded output; each child has a timeout, and any failure fails
+    the phase."""
+    outdir = os.path.join(workdir, "dryrun")
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "opendrift_tpu_torch.tools.multihost_dryrun",
+         "--device", "cuda", "--processes", "2", "--tiles", "2",
+         "--number", str(n), "--timeout", "240", "--outdir", outdir],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0 or "MULTIHOST DRYRUN OK" not in r.stdout:
+        raise AssertionError("multiprocess_dd failed:\n" + r.stdout[-4000:]
+                             + r.stderr[-4000:])
+    report = json.loads([line for line in r.stdout.splitlines()
+                         if line.startswith("{")][-1])
+    log("multiprocess_dd", seconds=time.perf_counter() - t,
+        why_gloo="NCCL refuses two ranks on one card; gloo stages the "
+        "card's tensors through host copies", **report)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3247,6 +3529,20 @@ def run_phases(kind, power, t, seconds, workdir):
     timed("mesh_card_against_cpu", mesh_card_against_cpu, small_files)
     timed("geotiff_card_against_cpu", geotiff_card_against_cpu, workdir)
     timed("scripts", scripts_phase, files)
+    dd_launches, dd_profile_launches, dd_stats = timed(
+        "dd_path", dd_path, stats["final"])
+    rows["visser_mixing"]["paths"]["dd"] = dd_launches
+    rows["visser_mixing_profile"]["paths"]["dd_constant"] = \
+        dd_profile_launches
+    mixing_s = rows["visser_mixing"]["ms"] * 1e-3 * dd_launches
+    log("mixing_share", path="dd", kernel="visser_mixing",
+        mixing_s=mixing_s, share_of_steps=mixing_s / (
+            dd_stats["main_loop_s"] - dd_stats["readers_s"]))
+    timed("dd_against_plain", dd_against_plain)
+    rows["visser_mixing"]["paths"]["sharded"] = timed(
+        "sharded_path", sharded_path)["launches"]
+    timed("dd_card_against_cpu", dd_card_against_cpu)
+    timed("multiprocess_dd", multiprocess_dd, workdir)
     log("phase_seconds", total=time.perf_counter() - t, **seconds)
 
     kernels = [{k: v for k, v in row.items()

@@ -1,7 +1,7 @@
 """CF-compliant trajectory NetCDF export/import, from scratch.
 
-The port's copy of ``opendrift_tpu/export/io_netcdf.py`` without the
-multi-host ``ShardWriter`` (ROADMAP A.14).
+The port's copy of ``opendrift_tpu/export/io_netcdf.py``, with the
+per-process ``ShardWriter`` of multi-process runs (``export:sharded``).
 
 The reference writes CF-1.11 trajectory files via the netCDF4 C library
 (reference: opendrift/export/io_netcdf.py:30-187).  netCDF4 is not
@@ -169,3 +169,83 @@ def valid_mask(status, active=None):
     first_dead[:, 0] = dead[:, 0]
     first_dead[:, 1:] = dead[:, 1:] & ~dead[:, :-1]
     return (status == active) | first_dead
+
+
+class ShardWriter:
+    """Per-process trajectory shard of a multi-process run
+    (``export:sharded``): each process appends only its own slots' raw
+    frames — O(local) instead of the O(global)-per-process gather — and
+    ``opendrift_tpu_torch/tools/concat_shards.py`` merges the shards into
+    the standard single-file layout offline.
+
+    File layout (record format, crash-safe like IncrementalWriter):
+    dims (time [record], slot); an int ``ID`` variable maps each slot
+    to its global element at each output step (slots migrate between
+    tiles under domain decomposition); data variables are RAW
+    (un-valid-masked) so the concat tool can apply the exact
+    ``valid_mask`` rule of the single-process writer.
+
+    The reference's analogue is the per-worker output files of its
+    multiprocessing recipe (reference
+    examples/example_long_multiprocessing.py:16-50)."""
+
+    def __init__(self, filename, n_slots, n_total, process_id,
+                 num_processes):
+        self.filename = filename
+        self.n = n_slots
+        self._f = netcdf_file(filename, "w", version=2)
+        self._f.createDimension("time", None)  # record dim (must be 1st)
+        self._f.createDimension("slot", n_slots)
+        self._f.n_total_elements = n_total
+        self._f.shard_process = process_id
+        self._f.shard_count = num_processes
+        self._tvar = self._f.createVariable("time", "d", ("time",))
+        self._tvar.units = "seconds since 1970-01-01 00:00:00"
+        self._vars = {}
+        self._written = 0
+
+    def append(self, frames, frame_times):
+        if not frames:
+            return
+        for name in frames[0]:
+            if name not in self._vars:
+                flt = np.issubdtype(frames[0][name].dtype, np.floating)
+                self._vars[name] = self._f.createVariable(
+                    name, "f" if flt else "i", ("time", "slot"))
+        t0 = self._written
+        for i, (fr, when) in enumerate(zip(frames, frame_times)):
+            self._tvar[t0 + i] = (np.datetime64(when, "s")
+                                  - EPOCH).astype("float64")
+            for name, vals in fr.items():
+                v = self._vars[name]
+                v[t0 + i] = vals.astype(
+                    np.float32 if v.typecode() == "f" else np.int32)
+        self._written += len(frames)
+        self._f.flush()
+
+    def finalize(self, result):
+        """Stamp the run's global attributes (identical on every shard;
+        the concat tool copies them onto the merged file) and close.
+        Unlike IncrementalWriter there is no layout rewrite — the
+        record layout IS the shard format."""
+        for k, val in result.attrs.items():
+            if val is None:
+                val = "None"
+            if isinstance(val, (int, float, np.integer, np.floating)):
+                setattr(self._f, k, val)
+            else:
+                setattr(self._f, k, str(val))
+        # per-variable attrs for the merged file
+        for name, var in result.variables.items():
+            if name in self._vars:
+                for k, val in var.attrs.items():
+                    if val is not None:
+                        setattr(self._vars[name], k, str(val))
+        self._f.flush()
+        self._f.close()
+
+    def abort_close(self):
+        try:
+            self._f.close()
+        except Exception:
+            pass

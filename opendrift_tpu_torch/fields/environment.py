@@ -202,8 +202,13 @@ class Environment:
                         reader.name, n, host)
                     self.discarded_readers[reader.name] = str(host)
                 host = None
+            # a domain-decomposed reader's table stays on the host: the
+            # run splits it into per-tile bands (parallel/tiled.py)
+            keep = ("packed",) if getattr(reader, "_dd_keep_host", False) \
+                else ()
             states.append(None if host is None
-                          else device_state_from_numpy(host, self.device))
+                          else device_state_from_numpy(host, self.device,
+                                                       keep))
         return tuple(states)
 
     # ------------------------------------------------------ device sampling

@@ -20,8 +20,15 @@ pairs, ~2^-21); ``packed_auto_compensate`` lets a reader take the
 compensated storage for large tables by itself.  Ensemble forcing packs
 its members one after the other and serves them round-robin by element ID
 (the ``member`` channel).  ``set_convolution_kernel`` smooths frames on
-the host at load.  Not ported yet: domain-decomposition bands (ROADMAP
-A.14).
+the host at load.
+
+Domain decomposition (``parallel/tiled.py``): a tiled reader keeps its
+packed table on the host (``_dd_keep_host``) for the run to split into
+per-tile core bands, or, with ``_dd_defer_pack`` (several processes, or
+``OPENDRIFT_DD_PER_HOST_READS=1``), builds no full table at all: each
+process reads only its bands through :meth:`packed_rows`.  Inside a tile
+the sampler's geometry is the tile's extended band, and ``_local_idx``
+shifts global grid indices by the tile's ``y_off``/``x_off``.
 """
 
 import logging
@@ -219,6 +226,42 @@ class StructuredGridReader(BaseReader):
         self._frame_cache[key] = arr
         return arr
 
+    def _load_frame_rows(self, std, ti, member, r0, r1, ctx=8):
+        """Per-process band read: load, scrub and return only subset rows
+        [r0, r1) of a frame (indices relative to the ``_iy`` subset, in
+        ascending-y orientation).  ``ctx`` context rows either side let
+        the nearest-valid NaN fill see its neighbourhood before the crop.
+        ``r1`` may pass the grid (tile padding): the band is then
+        edge-replicated to ``r1 - r0`` rows."""
+        iy = self._iy
+        ny = iy.stop - iy.start
+        if r0 >= ny:                      # band entirely past the grid
+            last = self._load_frame_rows(std, ti, member, ny - 1, ny, ctx)
+            return np.repeat(last, r1 - r0, axis=-2)
+        rr1 = min(r1, ny)
+        c0, c1 = max(0, r0 - ctx), min(ny, rr1 + ctx)
+        if self._flip_y:
+            # ascending rows [c0, c1) are source rows [ny - c1, ny - c0)
+            ys = slice(iy.start + ny - c1, iy.start + ny - c0)
+        else:
+            ys = slice(iy.start + c0, iy.start + c1)
+        if getattr(self, "ensemble_size", 1) > 1:
+            raw = self._read_frame(std, ti, slice(None), ys, self._ix,
+                                   member)
+        else:
+            raw = self._read_frame(std, ti, slice(None), ys, self._ix)
+        arr = np.asarray(raw, dtype=np.float32)
+        if self._flip_x:
+            arr = arr[..., ::-1]
+        if self._flip_y:
+            arr = arr[..., ::-1, :]
+        arr = self._scrub_frame(std, arr)
+        band = arr[..., r0 - c0:rr1 - c0, :]
+        if rr1 < r1:                      # pad past the grid edge
+            reps = np.repeat(band[..., -1:, :], r1 - rr1, axis=-2)
+            band = np.concatenate([band, reps], axis=-2)
+        return band
+
     def _scrub_frame(self, std, arr):
         """Valid-range scrub, NaN fill and the optional convolution
         (reference interpolation/structured.py:50-71,
@@ -285,9 +328,40 @@ class StructuredGridReader(BaseReader):
                    or (env_xy != "0"
                        and getattr(self, "pair_hint", None) == "xy"))
         pair_mode = choose_pair_mode(Z, ny, nx, C, want_xy)
-        self._sampler = PackedSampler(Z, ny, nx, F, col_of, pair_mode)
+        sampler = PackedSampler(Z, ny, nx, F, col_of, pair_mode)
+        if getattr(self, "_dd_keep_host", False) or \
+                getattr(self, "_dd_defer_pack", False):
+            # domain decomposition: the steps sample with the tile's
+            # geometry, which the run sets from this one (``retile``); a
+            # prefetching thread must not overwrite it mid-interval
+            self._dd_full_sampler = sampler
+        else:
+            self._sampler = sampler
+        M = getattr(self, "ensemble_size", 1)
+        self._pack_plan = {
+            "tidx": tidx, "col_of": col_of, "Z": Z, "C": C,
+            "Cf": C * PackedSampler.PAIR_FACTOR[pair_mode],
+            "pair_mode": pair_mode, "M": M, "ny": ny, "nx": nx}
         out = {}
-        if C > 0:
+        if C > 0 and getattr(self, "_dd_defer_pack", False):
+            # domain decomposition with per-process reads: the full-grid
+            # table is never built; the run reads each process's bands
+            # through packed_rows()
+            out["packed_deferred"] = True
+        elif C > 0 and getattr(self, "_dd_keep_host", False):
+            # domain decomposition: the host table is split into per-tile
+            # core bands by the run, so only the bands reach a device
+            # (as in the JAX package, no compensated storage and no u/v
+            # companion for a tile)
+            blocks = [self._pack_member(m, tidx, col_of, Z, C, pair_mode)
+                      .reshape(Z * ny * nx, -1) for m in range(M)]
+            packed_all = np.concatenate(blocks, axis=0) if M > 1 \
+                else blocks[0]
+            dtype = getattr(self, "packed_dtype", None) or "float32"
+            if dtype in ("float16x2", "f16x2"):
+                dtype = "float32"
+            out["packed"] = packed_all.astype(np.dtype(dtype))
+        elif C > 0:
             # ensemble forcing: member m's rows start at m * Z*ny*nx
             blocks = [self._pack_member(m, tidx, col_of, Z, C, pair_mode)
                       .reshape(Z * ny * nx, -1)
@@ -356,22 +430,36 @@ class StructuredGridReader(BaseReader):
             out["depths"] = np.zeros((1,), dtype=np.float32)
         return out
 
-    def _pack_member(self, m, tidx, col_of, Z, C, pair_mode):
+    def _pack_member(self, m, tidx, col_of, Z, C, pair_mode, rows=None):
         """Ensemble member ``m``'s window in the row layout:
-        (Z, ny, nx, C * k)."""
-        ny = self._iy.stop - self._iy.start
+        (Z, nrows, nx, C * k).  With ``rows=(r0, r1)`` only that band is
+        read from the source (a per-process read); the y-neighbour
+        columns take one context row, so the band equals the full-grid
+        packing's."""
         nx = self._ix.stop - self._ix.start
-        packed = np.empty((Z, ny, nx, C), dtype=np.float32)
+        if rows is None:
+            r0, r1 = 0, self._iy.stop - self._iy.start
+            pad_y = 0
+
+            def load(v, ti):
+                return self._load_frame(v, ti, m)
+        else:
+            r0, r1 = rows
+            pad_y = 1 if pair_mode in ("xy", "xyz") else 0
+
+            def load(v, ti):
+                return self._load_frame_rows(v, ti, m, r0, r1 + pad_y)
+        packed = np.empty((Z, r1 - r0 + pad_y, nx, C), dtype=np.float32)
         for v in self._group3:
             c0 = col_of[v][0]
             for fi, ti in enumerate(tidx):
-                packed[:, :, :, c0 + fi] = self._load_frame(v, ti, m)[:Z]
+                packed[:, :, :, c0 + fi] = load(v, ti)[:Z]
         for v in self._group2:
             c0 = col_of[v][0]
             for fi, ti in enumerate(tidx):
-                packed[:, :, :, c0 + fi] = self._load_frame(v, ti, m)[None]
+                packed[:, :, :, c0 + fi] = load(v, ti)[None]
         for v in self._static_packed + self._static_near:
-            packed[:, :, :, col_of[v][0]] = self._load_frame(v, 0, m)[None]
+            packed[:, :, :, col_of[v][0]] = load(v, 0)[None]
         if pair_mode == "none":
             return packed
 
@@ -391,7 +479,26 @@ class StructuredGridReader(BaseReader):
             packed = np.concatenate(
                 [packed, np.concatenate([packed[1:], packed[-1:]], axis=0)],
                 axis=3)
+        if pad_y:
+            packed = packed[:, :-pad_y]
         return packed
+
+    def packed_rows(self, r0, r1):
+        """A per-process band read for domain decomposition: the packed
+        rows [r0, r1) of the current window, (M*Z, r1-r0, nx, Cf), read
+        from the source with a small context margin only.  Needs a
+        preceding ``device_state()`` (which records the window's pack
+        plan); ``r1`` may pass the grid for tile padding."""
+        plan = self._pack_plan
+        bands = [self._pack_member(m, plan["tidx"], plan["col_of"],
+                                   plan["Z"], plan["C"], plan["pair_mode"],
+                                   rows=(r0, r1))
+                 for m in range(plan["M"])]
+        band = np.concatenate(bands, axis=0) if plan["M"] > 1 else bands[0]
+        dtype = getattr(self, "packed_dtype", None) or "float32"
+        if dtype in ("float16x2", "f16x2"):
+            dtype = "float32"
+        return np.ascontiguousarray(band.astype(np.dtype(dtype)))
 
     # ---------------------------------------------------------- sampling -
     def _grid_consts(self, device):
@@ -416,6 +523,27 @@ class StructuredGridReader(BaseReader):
             x = torch.where(x < self.xmin, x + 360.0, x)
         x0, y0, dx, dy = self._grid_consts(x.device)
         return (x - x0) / dx, (y - y0) / dy
+
+    def _local_idx(self, dev_state, xi, yi, covers=None):
+        """Domain decomposition: shift global fractional grid indices into
+        the tile's extended band (``y_off``/``x_off`` of the tile's device
+        state, set by ``DDContext.local_dev_states``) and restrict the
+        coverage to the cells the tile holds: an element beyond its halo
+        would read clamped cells, which count as not covered.  ``x_off``
+        exists only under a 2D (Y x X) tiling."""
+        if not isinstance(dev_state, dict):
+            return xi, yi, covers
+        y_off = dev_state.get("y_off")
+        if y_off is not None:
+            yi = yi - y_off
+            if covers is not None:
+                covers = covers & (yi >= 0) & (yi <= self._sampler.Y - 1)
+        x_off = dev_state.get("x_off")
+        if x_off is not None:
+            xi = xi - x_off
+            if covers is not None:
+                covers = covers & (xi >= 0) & (xi <= self._sampler.X - 1)
+        return xi, yi, covers
 
     def _row_offset(self, member):
         """Per-element first row of the element's ensemble member (round
@@ -443,10 +571,9 @@ class StructuredGridReader(BaseReader):
         return bool((t >= times[0] - slack) & (t <= times[-1] + slack))
 
     def sample(self, dev_state, varnames, t, lon, lat, z, member=None):
-        if "packed_deferred" in dev_state:
-            raise NotImplementedError("domain decomposition (ROADMAP A.14)")
         xi, yi = self._grid_indices(lon, lat)
         covers = self._covers_idx(xi, yi)
+        xi, yi, covers = self._local_idx(dev_state, xi, yi, covers)
         times = dev_state["times"]
         if not self._time_covered(times, t):
             covers = torch.zeros_like(covers)
@@ -515,6 +642,7 @@ class StructuredGridReader(BaseReader):
             keep_vars = list(UV)
         xi, yi = self._grid_indices(lon, lat)
         covers = self._covers_idx(xi, yi)
+        xi, yi, covers = self._local_idx(dev_state, xi, yi, covers)
         block = self._sampler.gather_corner_block(
             dev_state["packed"], xi, yi, torch.clamp_min(-z, 0.0),
             dev_state["depths"], row_offset=self._row_offset(member),
@@ -531,6 +659,7 @@ class StructuredGridReader(BaseReader):
         up to the order of the linear blends where the position is the
         block's gather position.  Returns (values, temporal coverage)."""
         xi, yi = self._grid_indices(lon, lat)
+        xi, yi, _ = self._local_idx(dev_state, xi, yi)
         vals = self._sampler.eval_corner_block(
             block, xi, yi, dev_state["times"], t, varnames)
         if not self.crs.is_latlon:
@@ -555,6 +684,8 @@ class StructuredGridReader(BaseReader):
         want3 = [v for v in varnames if v in self._group3]
         out = {}
         xi, yi = self._grid_indices(lon, lat)
+        covers = self._covers_idx(xi, yi)
+        xi, yi, covers = self._local_idx(dev_state, xi, yi, covers)
         if want3:
             res = {v: [] for v in want3}
             for level in zlevels:
@@ -573,8 +704,7 @@ class StructuredGridReader(BaseReader):
                                        torch.zeros_like(lon))
             for v in rest:
                 out[v] = vals[v].expand(len(zlevels), -1)
-            return out, covers
-        return out, self._covers_idx(xi, yi)
+        return out, covers
 
 
 class ArrayReader(StructuredGridReader):

@@ -59,6 +59,29 @@ def element_state_to_numpy(state):
     return {k: v.cpu().numpy() for k, v in state.data.items()}
 
 
+def tile_states_from_numpy(arrays, n_tiles, devices):
+    """The JAX package's domain-decomposition layout — flat
+    ``(n_tiles * cap,)`` host arrays (``(C, n_tiles * cap)`` for a
+    per-component array), slot ``t*cap+s`` being slot ``s`` of tile
+    ``t`` — -> the port's per-tile states: a list of ``n_tiles``
+    :class:`ElementState` of ``cap`` slots, tile ``t`` on
+    ``devices[t]``."""
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    cap = next(iter(arrays.values())).shape[-1] // n_tiles
+    return [ElementState({k: _tensor(v[..., t * cap:(t + 1) * cap],
+                                     devices[t])
+                          for k, v in arrays.items()})
+            for t in range(n_tiles)]
+
+
+def tile_states_to_numpy(states):
+    """The inverse of :func:`tile_states_from_numpy`: per-tile states (or
+    dicts of per-slot tensors) -> the flat ``t*cap+s`` host layout."""
+    datas = [getattr(s, "data", s) for s in states]
+    return {k: np.concatenate([d[k].cpu().numpy() for d in datas], axis=-1)
+            for k in datas[0]}
+
+
 def table_to_numpy(table):
     """A packed table of either package -> host form: a numpy array, or the
     dict of a compensated or split table (see the module docstring).  Takes
@@ -110,18 +133,23 @@ def corner_block_to_numpy(block):
     return (host(g_y0), host(g_y1), host(x0), host(y0), dict(col_of))
 
 
-def device_state_from_numpy(arrays, device):
+def device_state_from_numpy(arrays, device, keep_host=()):
     """A reader's host state -> its device state: arrays become tensors on
     ``device`` (float32 stays float32), tensors go there (no copy when
     they are there already: a static raster's state is built once), table
     storages their device form, host keys stay numpy, other entries pass
     through.  A tuple of states (the operand readers of
-    ``fields/operators.py``) becomes a tuple of device states."""
+    ``fields/operators.py``) becomes a tuple of device states.  Keys in
+    ``keep_host`` stay as they are (a domain-decomposed reader's table,
+    which the run splits into per-tile bands)."""
     if isinstance(arrays, (tuple, list)):
-        return tuple(device_state_from_numpy(a, device) for a in arrays)
+        return tuple(device_state_from_numpy(a, device, keep_host)
+                     for a in arrays)
     out = {}
     for k, v in dict(arrays).items():
-        if k in HOST_KEYS:
+        if k in keep_host:
+            out[k] = v
+        elif k in HOST_KEYS:
             out[k] = np.asarray(v, dtype=np.float32)
         elif isinstance(v, (CompensatedTable, SplitTable)) or (
                 isinstance(v, dict) and "kind" in v):

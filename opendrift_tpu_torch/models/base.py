@@ -16,12 +16,17 @@ matches upstream; the internals follow the JAX package:
   2193-2304).
 * Random numbers come from one base key folded per (interval, step, use),
   with threefry bit-equal to the JAX package's (``rng.py``).
+* Over a mesh of several tiles (``set_mesh``, by default the visible CUDA
+  cards) the run shards its elements (``parallel:particle_sharding``,
+  ``parallel/mesh.py``) or decomposes the primary forcing grid with halo
+  exchange and migration (``parallel:domain_decomposition``,
+  ``parallel/tiled.py``); the tiles step in turn, a step at a time.
+  Several processes join through ``parallel/multihost.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card a CUDA request raises.  The post-processing mixin (density
 maps, residence time, FTLE) and the plotting mixin (matplotlib, imported
-inside each plot) are mixed in as in the JAX package.  Deferred: domain
-decomposition, particle sharding and capacity padding (ROADMAP A.14).
+inside each plot) are mixed in as in the JAX package.
 """
 
 import json
@@ -111,6 +116,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         self._np_random = np.random.RandomState(seed)
         self.simulation_extent = None
         self.messages = []
+        self._dd = self._sharding = None
         if loglevel is not None:
             logging.basicConfig(level=loglevel)
         self.env = Environment(self.required_variables, device=self.device)
@@ -247,6 +253,41 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                 "level": CONFIG_LEVEL_ADVANCED,
                 "description": "Flush the outfile every this many output "
                 "steps during the run; 0 writes only at the end"},
+            "parallel:particle_sharding": {
+                "type": "bool", "default": True,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Shard elements over the tiles of the mesh "
+                "(set_mesh, default the visible CUDA cards); forcing "
+                "fields are replicated"},
+            "parallel:domain_decomposition": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Split the primary forcing grid into Y "
+                "bands over the tiles of the mesh (for grids too large to "
+                "replicate): per-tile particle buffers, halo exchange "
+                "between neighbour tiles and neighbour-only particle "
+                "migration after every step"},
+            "parallel:tile_capacity_factor": {
+                "type": "float", "default": 2.0, "min": 1.0, "max": 64.0,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Per-tile particle buffer slots as a "
+                "multiple of the even share (headroom for spatially "
+                "clumped distributions under domain decomposition)"},
+            "parallel:tile_grid": {
+                "type": "str", "default": "auto",
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Tile topology for domain decomposition: "
+                "'auto' = 1D Y bands (one per tile), or 'RxC' for a "
+                "2D Y-by-X tiling (R*C must equal the tile count; "
+                "right for domains wider than tall)"},
+            "export:sharded": {
+                "type": "bool", "default": False,
+                "level": CONFIG_LEVEL_ADVANCED,
+                "description": "Multi-process runs: every process writes "
+                "its own slots to <outfile>.pNNN.nc instead of gathering "
+                "every snapshot to every process; merge offline with "
+                "opendrift_tpu_torch/tools/concat_shards.py. "
+                "Single-process runs ignore this"},
         })
 
     def _add_seed_configs(self):
@@ -762,6 +803,10 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         self.time_step = timedelta(seconds=dt)
         self.time_step_output = timedelta(seconds=K * dt)
         self.steps_calculation = steps
+        # sharded output needs per-slot IDs in every snapshot (slots
+        # migrate under domain decomposition)
+        self._want_id_in_snapshot = bool(
+            outfile is not None and self.get_config("export:sharded"))
 
         advance, final_snap, state, base_key = self.prepare_run(
             dt, K, export_variables=export_variables, total_steps=steps)
@@ -779,27 +824,68 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         frames, frame_times = [], []
         writer = None
         flushed = 0
+        from ..parallel import multihost
+        # sharded output (export:sharded): every process writes its own
+        # slots' raw frames to <outfile>.pNNN.nc, merged offline by
+        # tools/concat_shards.py; otherwise only the first process writes
+        sharded_out = False
+        if outfile is not None:
+            sharded_out = bool(self.get_config("export:sharded")) \
+                and multihost.is_multihost()
+            if multihost.is_multihost() and not multihost.is_primary() \
+                    and not sharded_out:
+                outfile = None
         buffer_length = self.get_config("export:buffer_length") or 0
-        if outfile is not None and buffer_length > 0:
+        n_real = self._n_real_elements
+        if outfile is not None and sharded_out:
+            self._shard_outfile = \
+                f"{outfile}.p{multihost.process_index():03d}.nc"
+            buffer_length = max(buffer_length, 1)
+        elif outfile is not None and buffer_length > 0:
             from ..export.io_netcdf import IncrementalWriter
-            writer = IncrementalWriter(outfile, self._n_real_elements)
+            writer = IncrementalWriter(outfile, n_real)
 
         def flush(force=False):
-            nonlocal flushed
+            nonlocal flushed, writer
+            if sharded_out and writer is None and frames:
+                from ..export.io_netcdf import ShardWriter
+                writer = ShardWriter(
+                    self._shard_outfile, int(frames[0]["lon"].shape[-1]),
+                    n_real, multihost.process_index(),
+                    multihost.process_count())
             pending = frames[flushed:]
             if writer is not None and pending and (
                     force or len(pending) >= buffer_length):
-                writer.append(pending, frame_times[flushed:])
+                cut = None if sharded_out else n_real
+                writer.append([{n: v[..., :cut] for n, v in f.items()}
+                               for f in pending], frame_times[flushed:])
                 flushed = len(frames)
 
+        dd, sharding = self._dd, self._sharding
+        from ..parallel.mesh import gather_tiles
+
         def host(snap):
+            if sharded_out:
+                # O(local): this process's slots only
+                return multihost.local_rows(snap, (dd or sharding).mesh)[0]
+            if dd is not None:
+                export = self.export_variables
+                return dd.reorder_frame(
+                    gather_tiles(snap), n_real,
+                    keep_id=export is None or "ID" in export)
+            if sharding is not None:
+                return gather_tiles(snap)
             return {n: v.cpu().numpy() for n, v in snap.items()}
 
         def device_states(k):
             # host packing and the copy to the device, timed apart from
-            # the steps (the copy returns once the tables are on the card)
+            # the steps (the copy returns once the tables are on the card);
+            # a decomposed grid is split into its tiles' bands here, before
+            # the next window's prefetch starts
             self.timer_start("main loop:readers")
             states = self.env.build_device_states(*window(k))
+            if dd is not None:
+                states = dd.retile(states)
             self.timer_end("main loop:readers")
             return states
         try:
@@ -827,14 +913,19 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             frames.append(host(final_snap(state, dev_states, t_rel)))
             frame_times.append(self.start_time
                                + timedelta(seconds=float(t_rel)))
-            self.state = state
+            if dd is not None or sharding is not None:
+                self.state = element_state_from_numpy(
+                    gather_tiles([s.data for s in state]), self.device)
+            else:
+                self.state = state
         except Exception:
             self.env.cancel_prefetch()
             if writer is not None:
                 flush(force=True)
                 writer.abort_close()
             if frames:
-                self.result = self._assemble_result(frames, frame_times)
+                self.result = self._assemble_result(
+                    frames, frame_times, trim=not sharded_out)
                 self.mode = Mode.Result
             self.timer_end("main loop")
             raise
@@ -846,12 +937,15 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         self.timer_end("main loop")
 
         self.timer_start("postprocessing")
-        self.result = self._assemble_result(frames, frame_times)
+        # sharded output: self.result holds this process's own slots (with
+        # an ID variable); the global file comes from concat_shards
+        self.result = self._assemble_result(frames, frame_times,
+                                            trim=not sharded_out)
         if outfile is not None:
             if writer is not None:
                 flush(force=True)
                 writer.finalize(self.result)
-            else:
+            elif not sharded_out:
                 from ..export.io_netcdf import write_result
                 write_result(self.result, outfile)
         self.timer_end("postprocessing")
@@ -888,6 +982,20 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
     def post_run(self):
         """Model hook called after the run completes
         (reference basemodel/__init__.py post_run)."""
+
+    def set_mesh(self, devices):
+        """The tiles of particle sharding or domain decomposition: a list
+        of torch devices, one tile each, repeats allowed (``["cpu"] * 8``,
+        ``["cuda:0"] * 4``); across processes, this process's own tiles.
+        ``None`` restores the default, the visible CUDA cards (one card
+        or the CPU: no sharding)."""
+        self._mesh_devices = list(devices) if devices is not None else None
+
+    def _tile_mesh(self):
+        """The run's mesh of tiles (``parallel.mesh.Mesh``)."""
+        from ..parallel.mesh import particle_mesh
+        return particle_mesh(getattr(self, "_mesh_devices", None),
+                             self.device)
 
     def simulation_direction(self):
         """+1 forward, -1 backward (reference basemodel
@@ -1019,9 +1127,43 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             depth0 = envs0["sea_floor_depth_below_sea_level"].cpu().numpy()
             state_np["z"] = (-depth0 + 0.01).astype(np.float32)
             state_np["prev_z"] = state_np["z"].copy()
+
+        # ---- domain decomposition: tile the primary forcing grid over the
+        # mesh and re-layout elements into per-tile buffers (the slot of
+        # reference basereader/structured.py:121-123 block buffers at
+        # multi-device scale; see parallel/tiled.py)
+        for reader, _ in self.env._plan:
+            reader._dd_keep_host = reader._dd_defer_pack = False
+        mesh = self._tile_mesh()
+        self._dd = self._sharding = None
+        if mesh.n_tiles > 1 and \
+                self.get_config("parallel:domain_decomposition"):
+            from ..parallel.tiled import DDContext
+            self._dd = DDContext(
+                self, max_speed=max_speed, dt=dt, mesh=mesh,
+                capacity_factor=self.get_config(
+                    "parallel:tile_capacity_factor"),
+                tile_grid=self.get_config("parallel:tile_grid"))
+            state_np = self._dd.bin_initial_state(state_np,
+                                                  self._n_real_elements)
+            self._n_padded_elements = len(state_np["lon"])
+        elif mesh.n_tiles > 1 and \
+                self.get_config("parallel:particle_sharding"):
+            from ..parallel.mesh import ShardedRun
+            self._sharding = ShardedRun(mesh, self._n_padded_elements,
+                                        self._n_real_elements)
         self.export_variables = export_variables
         advance, final_snap = self._make_advance(K, dt)
-        state = element_state_from_numpy(state_np, self.device)
+        if self._dd is not None or self._sharding is not None:
+            # the binned per-tile buffers, or the padded element axis,
+            # split evenly: each process keeps its own tiles
+            from ..parallel.mesh import shard_state
+            state = shard_state(state_np, mesh)
+            logger.info("%s %d slots over %d tiles",
+                        "Decomposing" if self._dd else "Sharding",
+                        self._n_padded_elements, mesh.n_tiles)
+        else:
+            state = element_state_from_numpy(state_np, self.device)
         return advance, final_snap, state, rng.PRNGKey(self.rng_seed)
 
     def _build_initial_state(self, dt):
@@ -1029,6 +1171,13 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         with its release time relative to the start)."""
         n = self.num_elements_scheduled_total
         self._n_real_elements = n
+        # pad the capacity to a multiple of the tile count so the element
+        # axis shards evenly; the padding stays NOT_RELEASED
+        n_tiles = self._tile_mesh().n_tiles
+        if n_tiles > 1 and self.get_config("parallel:particle_sharding") \
+                and not self.get_config("parallel:domain_decomposition"):
+            n = ((n + n_tiles - 1) // n_tiles) * n_tiles
+        self._n_padded_elements = n
         sign = 1.0 if dt > 0 else -1.0
         arrays = {}
         for name, spec in self.ElementType.variables.items():
@@ -1046,7 +1195,9 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         all_times = np.concatenate([s["time"] for s in self._seedings])
         rel = np.array([(t - self.start_time).total_seconds()
                         for t in all_times], dtype=np.float32)
-        arrays["release_tau"] = (rel * sign).astype(np.float32)
+        # padding elements (if any) are never released
+        arrays["release_tau"] = np.full(n, np.inf, dtype=np.float32)
+        arrays["release_tau"][:len(rel)] = (rel * sign).astype(np.float32)
         arrays["prev_lon"] = arrays["lon"].copy()
         arrays["prev_lat"] = arrays["lat"].copy()
         arrays["prev_z"] = arrays["z"].copy()
@@ -1350,9 +1501,15 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                     d["z"] = torch.where(active & below, d["prev_z"], d["z"])
             return ElementState(d), envs, block_ctx
 
+        dd = self._dd
+
         def snapshot(state, envs):
             export = self.export_variables
-            always = ("lon", "lat", "z", "status")
+            # domain decomposition: slots move with migration, so the host
+            # re-indexes every frame by element ID
+            always = ("lon", "lat", "z", "status") + (
+                ("ID",) if dd is not None
+                or getattr(self, "_want_id_in_snapshot", False) else ())
             snap = {name: state.data[name]
                     for name in self.ElementType.variables
                     if export is None or name in export or name in always}
@@ -1422,6 +1579,15 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                                         rng.PRNGKey(0))
             return snapshot(state, envs)
 
+        if dd is not None:
+            # the tiles step in turn, a step at a time, each with the
+            # unchanged step program on its own slots and extended forcing
+            # band; migration after every step
+            return (dd.wrap_advance(step, K, params["dt"], sign),
+                    dd.wrap_final(final_snapshot))
+        if self._sharding is not None:
+            return (self._sharding.wrap_advance(advance),
+                    self._sharding.wrap_final(final_snapshot))
         return advance, final_snapshot
 
     def _profile_zlevels(self):
@@ -1434,10 +1600,12 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             "Subclasses must define an update(ctx) method")
 
     # --------------------------------------------------- result assembly --
-    def _assemble_result(self, frames, frame_times):
+    def _assemble_result(self, frames, frame_times, trim=True):
         from ..export.io_netcdf import valid_mask
         names = list(frames[0].keys())
-        stacked = {n: np.stack([f[n] for f in frames], axis=-1)
+        # particle sharding pads the element axis: keep the real elements
+        cut = getattr(self, "_n_real_elements", None) if trim else None
+        stacked = {n: np.stack([f[n][..., :cut] for f in frames], axis=-1)
                    for n in names}  # (N, T)
         # valid: active frames plus the first dead frame (reference
         # basemodel/__init__.py:2390-2396)

@@ -37,6 +37,7 @@ from ...config import CONFIG_LEVEL_ESSENTIAL, CONFIG_LEVEL_BASIC, \
     CONFIG_LEVEL_ADVANCED
 from ...ops import mixing
 from ...ops import physics as ph
+from ...parallel.mesh import gathered
 from ...utils.plotting import pyplot
 from ...utils.shapefile import points_in_ring
 from ..oceandrift import OceanDrift, Lagrangian3DArray
@@ -346,7 +347,8 @@ class OpenOil(OceanDrift):
         # a host test, as in the JAX package: with temperature-dependent
         # SINTEF data Y_max is a device tensor, and reading its maximum
         # waits for the device once a step
-        if (float(Y_max.max()) if torch.is_tensor(Y_max) else Y_max) <= 0:
+        if (float(gathered(Y_max).max()) if torch.is_tensor(Y_max)
+                else Y_max) <= 0:
             return
         drop_min, drop_max = 1.0e-6, 1.0e-5
         S_max = (6.0 / drop_min) * (Y_max / (1.0 - Y_max))
@@ -460,7 +462,8 @@ class OpenOil(OceanDrift):
             dN_50 = A * h * we ** -0.6 + A * Bp * h * re ** -0.6
             dV_50 = torch.exp(torch.log(dN_50) + 3.0 * Sd ** 2)
         # reference collapses to the mean median diameter across elements
-        dV_50 = torch.nanmean(dV_50)
+        # (all of them, in a particle-sharded run too)
+        dV_50 = torch.nanmean(gathered(dV_50))
         return dV_50, Sd
 
     def prepare_vertical_mixing(self, ctx):
@@ -603,11 +606,15 @@ class OpenOil(OceanDrift):
         lon, lat = d["lon"], d["lat"]
         nb = 100
         inf = float("inf")
-        w = torch.where(surface, 1.0, 0.0)
-        lon0 = torch.min(torch.where(surface, lon, inf))
-        lon1 = torch.max(torch.where(surface, lon, -inf))
-        lat0 = torch.min(torch.where(surface, lat, inf))
-        lat1 = torch.max(torch.where(surface, lat, -inf))
+        # the slick is every element's: in a particle-sharded run the bins
+        # are filled from the whole element axis
+        surf_all, lon_all, lat_all, mass_all = (gathered(v) for v in (
+            surface, lon, lat, d["mass_oil"]))
+        w = torch.where(surf_all, 1.0, 0.0)
+        lon0 = torch.min(torch.where(surf_all, lon_all, inf))
+        lon1 = torch.max(torch.where(surf_all, lon_all, -inf))
+        lat0 = torch.min(torch.where(surf_all, lat_all, inf))
+        lat1 = torch.max(torch.where(surf_all, lat_all, -inf))
         dlon = torch.clamp_min(lon1 - lon0, 1e-6)
         dlat = torch.clamp_min(lat1 - lat0, 1e-6)
 
@@ -617,8 +624,9 @@ class OpenOil(OceanDrift):
             f = torch.nan_to_num((x - x0) / dx * nb, nan=0.0)
             return torch.clip(f, 0, nb - 1).to(torch.int64)
         bins = cell(lat, lat0, dlat) * nb + cell(lon, lon0, dlon)
+        bins_all = cell(lat_all, lat0, dlat) * nb + cell(lon_all, lon0, dlon)
         mass_bin = torch.zeros(nb * nb, dtype=lon.dtype, device=lon.device)
-        mass_bin.index_add_(0, bins, w * d["mass_oil"])
+        mass_bin.index_add_(0, bins_all, w * mass_all)
         meanlat = torch.clip(0.5 * (lat0 + lat1), -89.0, 89.0)
         cell_area = (dlon / nb * 111320.0 * torch.cos(torch.deg2rad(meanlat))) \
             * (dlat / nb * 111320.0)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops import physics as ph
+from ..parallel.mesh import gathered
 from ..utils.geodesic import geodesic_step_fast
 from ..utils.xp import tnp
 
@@ -205,7 +206,7 @@ class PhysicsContext:
         wind_hs = ph.significant_wave_height_from_wind(self.wind_speed())
         if hs is None:
             return wind_hs
-        return torch.where(hs.max() > 0, hs, wind_hs)
+        return torch.where(gathered(hs).max() > 0, hs, wind_hs)
 
     def wave_from_direction(self):
         """Wave FROM direction [deg]; with no wave field (an all-zero
@@ -217,7 +218,7 @@ class PhysicsContext:
         wind_from = torch.remainder(wind_to + 180.0, 360.0)
         if wd is None:
             return wind_from
-        return torch.where(torch.abs(wd).max() > 0, wd, wind_from)
+        return torch.where(torch.abs(gathered(wd)).max() > 0, wd, wind_from)
 
     def wave_period(self):
         """(reference physics_methods.py:918-944): prefer Tm02, then Tp,
@@ -229,9 +230,9 @@ class PhysicsContext:
                    "maximum")
         T = ph.wave_period_from_wind(self.wind_speed())
         if tp is not None:
-            T = torch.where(tp.max() > 0, tp, T)
+            T = torch.where(gathered(tp).max() > 0, tp, T)
         if tm02 is not None:
-            T = torch.where(tm02.max() > 0, tm02, T)
+            T = torch.where(gathered(tm02).max() > 0, tm02, T)
         return T
 
     def sea_water_density(self):

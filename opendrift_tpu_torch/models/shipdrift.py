@@ -25,6 +25,7 @@ import torch
 from ..config import CONFIG_LEVEL_ESSENTIAL
 from ..elements import LagrangianArray
 from ..ops.physics import rdiv
+from ..parallel.mesh import gathered
 from .base import OpenDriftSimulation
 
 G = 9.81
@@ -260,7 +261,8 @@ class ShipDrift(OpenDriftSimulation):
         offset = -self.winwav_angle * 2.0 * (d["orientation"] - 0.5)
         su = env["sea_surface_wave_stokes_drift_x_velocity"]
         sv = env["sea_surface_wave_stokes_drift_y_velocity"]
-        have_stokes = (torch.abs(su).max() + torch.abs(sv).max()) > 0
+        have_stokes = (torch.abs(gathered(su)).max()
+                       + torch.abs(gathered(sv)).max()) > 0
         wave_dir = torch.deg2rad(offset) + torch.where(
             have_stokes, torch.atan2(sv, su),
             torch.atan2(env["y_wind"], env["x_wind"]))

@@ -10,6 +10,7 @@ Nothing is built when a module is imported.
 import hashlib
 import os
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -44,6 +45,16 @@ def build(source, flags):
         raise RuntimeError(f"nvcc failed on {src}:\n{out.stderr}")
     os.replace(tmp, so)
     return so, out.stderr
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, n=1):
+    """Add ``n`` to ``wrapper.launches`` (under a lock: the shards of a
+    particle-sharded run step on threads of their own)."""
+    with _count_lock:
+        wrapper.launches += n
 
 
 def check_launch(rc, name):

@@ -39,7 +39,8 @@ import threading
 
 import torch
 
-from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch
+from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch, \
+    count_launch
 
 NBUF = 8                            # stages of the async ring (csrc kNBuf)
 # narrower rows take the ring even where they could take the bulk copies,
@@ -167,7 +168,7 @@ def gather_rows_async(packed, idx):
         return gather_rows_plain(packed, idx)
     out, launched = _launch("gather_rows_async_launch", packed, idx, rows,
                             row_bytes, "gather_rows_async")
-    gather_rows_async.launches += int(launched)
+    count_launch(gather_rows_async, int(launched))
     return out
 
 
@@ -189,7 +190,7 @@ def gather_rows_smem(packed, idx):
         return gather_rows_plain(packed, idx)
     out, launched = _launch("gather_rows_smem_launch", packed, idx, rows,
                             row_bytes, "gather_rows_smem")
-    gather_rows_smem.launches += int(launched)
+    count_launch(gather_rows_smem, int(launched))
     return out
 
 

@@ -52,7 +52,8 @@ import threading
 import torch
 
 from . import physics as ph
-from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch
+from .cuda_build import ARCH_FLAGS, SHARED_FLAGS, build, check_launch, \
+    count_launch
 from .gather import SECTOR_BYTES
 
 WINDSPEED_MODELS = ("windspeed_Sundby1983", "windspeed_Large1994",
@@ -252,7 +253,7 @@ def visser_mixing(z, moving, w, wind, mld, zmin, seed, elem=None, *, ntimes,
         int(opts["mixing_at_surface"]), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "visser_mixing")
-    visser_mixing.launches += 1
+    count_launch(visser_mixing)
     return out
 
 
@@ -353,7 +354,7 @@ def visser_mixing_profile(z, moving, w, Kprof, gradK, zmin, seed, elem=None,
         int(opts["mixing_at_surface"]), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "visser_mixing_profile")
-    visser_mixing_profile.launches += 1
+    count_launch(visser_mixing_profile)
     return out
 
 
@@ -462,7 +463,7 @@ def visser_mixing_oil(z, diam, moving, wind, mld, zmin, p_ent, d_cand, zb,
         z_out.data_ptr(), diam_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "visser_mixing_oil")
-    visser_mixing_oil.launches += 1
+    count_launch(visser_mixing_oil)
     return z_out, diam_out
 
 

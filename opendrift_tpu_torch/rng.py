@@ -17,8 +17,19 @@ evaluates XLA's float32 inverse error function on the same uniforms as
 JAX; ``log1p`` of the two libraries may differ by an ulp, so normals may
 differ by a few float32 ulp (``tests/test_torch_rng.py`` states the
 bound).
+
+Particle sharding (``parallel/mesh.py``) splits the element axis over
+tiles, and the JAX package draws over the global axis with partitionable
+threefry, where the counter of element (c, j) of a (C, N) draw is
+``c * N + j``.  A shard that holds elements [offset, offset + n) of N
+draws the counters of those global slots: :func:`bits` takes the
+``partition=(offset, N)`` of its last axis, and inside
+:func:`element_partition` every draw whose last axis is the shard's
+length takes it from there, so the model code draws unchanged.
 """
 
+import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -76,17 +87,55 @@ def split(key, num=2):
     return tuple(fold_in(key, i) for i in range(num))
 
 
-def bits(key, shape=(), device=None):
+_partition = threading.local()
+
+
+@contextlib.contextmanager
+def element_partition(offset, n_local, n_global):
+    """Draws of this thread whose last axis has ``n_local`` entries take
+    the counters of elements [offset, offset + n_local) of a global axis
+    of ``n_global`` (one shard of a particle-sharded run)."""
+    old = getattr(_partition, "value", None)
+    _partition.value = (int(offset), int(n_local), int(n_global))
+    try:
+        yield
+    finally:
+        _partition.value = old
+
+
+def _active_partition(shape):
+    value = getattr(_partition, "value", None)
+    if value is not None and len(shape) and shape[-1] == value[1]:
+        return value[0], value[2]
+    return None
+
+
+def bits(key, shape=(), device=None, partition=None):
     """``jax.random.bits(key, shape, dtype=uint32)``.  The empty shape
     returns a Python int; any other shape an int64 tensor of uint32
-    values on ``device``."""
+    values on ``device``.  ``partition=(offset, n_global)``: the last
+    axis is elements [offset, offset + shape[-1]) of an axis of
+    ``n_global``, and the values are those of that slice of the global
+    draw (default: the active :func:`element_partition`, if any)."""
     if shape == ():
         b1, b2 = threefry2x32(key.k1, key.k2, 0, 0)
         return b1 ^ b2
-    n = int(np.prod(shape))
-    if n >= 1 << 32:
-        raise ValueError("the port's counters are 32-bit")
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    shape = tuple(int(s) for s in shape)
+    if partition is None:
+        partition = _active_partition(shape)
+    if partition is None:
+        n = int(np.prod(shape))
+        if n >= 1 << 32:
+            raise ValueError("the port's counters are 32-bit")
+        lo = torch.arange(n, dtype=torch.int64, device=device)
+    else:
+        offset, n_global = partition
+        lead = int(np.prod(shape[:-1]))
+        if lead * n_global >= 1 << 32:
+            raise ValueError("the port's counters are 32-bit")
+        row = torch.arange(lead, dtype=torch.int64, device=device)
+        col = torch.arange(shape[-1], dtype=torch.int64, device=device)
+        lo = (row[:, None] * n_global + offset + col[None, :]).reshape(-1)
     b1, b2 = threefry2x32(key.k1, key.k2, torch.zeros_like(lo), lo)
     return (b1 ^ b2).reshape(shape)
 

@@ -385,3 +385,38 @@ def test_smoke_script_refuses_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          env=env)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_the_parallel_slice_loads_no_jax():
+    """The parallel layer's modules and its two tools are among the
+    sources checked above, and importing them in a fresh process, then
+    running a tiled and a sharded run on CPU tiles, leaves JAX and the JAX
+    package out of ``sys.modules``."""
+    have = {os.path.relpath(p, PORT) for p in _port_sources()}
+    mods = ["opendrift_tpu_torch.parallel",
+            "opendrift_tpu_torch.parallel.mesh",
+            "opendrift_tpu_torch.parallel.domain",
+            "opendrift_tpu_torch.parallel.tiled",
+            "opendrift_tpu_torch.parallel.multihost",
+            "opendrift_tpu_torch.tools.concat_shards",
+            "opendrift_tpu_torch.tools.multihost_dryrun"]
+    for m in mods:
+        rel = m.split(".", 1)[1].replace(".", "/")
+        assert rel + ".py" in have or rel + "/__init__.py" in have, m
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from opendrift_tpu_torch.tools import multihost_dryrun as d\n"
+        "for mode in ('particle', 'domain'):\n"
+        "    o = d._simulation('cpu', mode, 4, 4, 32, False)\n"
+        "    o.run(steps=2, time_step=900)\n"
+        "    assert (o._sharding or o._dd) is not None\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'opendrift_tpu'))\n"
+        "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout

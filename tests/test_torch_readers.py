@@ -279,20 +279,36 @@ def test_catalog_reads_from_the_local_cache_only(files, tmp_path,
 
 
 def test_not_yet_ported_readers_name_their_item():
-    """The reader layer is whole; what is still to be ported raises and
-    names its ROADMAP item, and only one stub is left: a reader state of
-    the domain decomposition (A.14, ``fields/grid.py``).  The plots and
+    """The reader layer is whole and no stub naming a ROADMAP item is left
+    in the port: the last one, a reader state of the domain decomposition
+    (A.14, ``fields/grid.py``), is now a tile's band, which samples the
+    same values as the whole grid at the same positions.  The plots and
     seeders that raised naming A.13 are ported, and every model of the
     zoo resolves."""
     import re
-    grid = T.ArrayReader({"x_sea_water_velocity": np.zeros((2, 3, 4),
-                                                           np.float32)},
-                         np.arange(4.0), np.arange(3.0) + 60.0,
+    from opendrift_tpu_torch.ops.interp import PackedSampler
+    u = np.arange(2 * 6 * 4, dtype=np.float32).reshape(2, 6, 4)
+    grid = T.ArrayReader({"x_sea_water_velocity": u}, np.arange(4.0),
+                         np.arange(6.0) + 60.0,
                          [F.T0, F.T0 + timedelta(hours=1)])
-    pos = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        grid.sample({"packed_deferred": None}, ["x_sea_water_velocity"],
-                    np.float32(0.0), pos, pos + 60.0, pos)
+    grid.set_run_epoch(F.T0)
+    whole = grid.device_state(F.T0, F.T0 + timedelta(hours=1))
+    state = {k: (torch.as_tensor(v) if k != "times" else v)
+             for k, v in whole.items()}
+    lon = torch.tensor([1.25, 2.5])
+    lat = torch.tensor([63.5, 64.25])
+    want, _ = grid.sample(state, ["x_sea_water_velocity"], np.float32(900.0),
+                          lon, lat, torch.zeros(2))
+    # rows 2..5 of the grid as a tile band with y_off = 2
+    s = grid._sampler
+    band = torch.as_tensor(whole["packed"]).reshape(s.Y, s.X, -1)[2:]
+    tile = dict(state, packed=band.reshape(-1, band.shape[-1]), y_off=2.0)
+    grid._sampler = PackedSampler(s.Z, 4, s.X, s.F, s.col_of, s.pair_mode)
+    got, covers = grid.sample(tile, ["x_sea_water_velocity"],
+                              np.float32(900.0), lon, lat, torch.zeros(2))
+    assert covers.all()
+    assert torch.equal(got["x_sea_water_velocity"],
+                       want["x_sea_water_velocity"])
     import opendrift_tpu_torch
     root = os.path.dirname(opendrift_tpu_torch.__file__)
     stubs = []
@@ -305,7 +321,7 @@ def test_not_yet_ported_readers_name_their_item():
                         text):
                     stubs.append((os.path.relpath(os.path.join(
                         folder, name), root), item))
-    assert stubs == [("fields/grid.py", "A.14")]
+    assert stubs == []
     for name in ("RadionuclideDrift", "ChemicalDrift", "OpenHNS",
                  "OpenBergOld", "ModelTemplate"):
         assert opendrift_tpu_torch.get_model(name).__name__ == name

@@ -437,11 +437,12 @@ def test_num_active_and_config_hash_remove():
         o._config_hash_remove("drift:max_speed")
         o._config_hash_remove("no:such_key")
         assert "drift:max_speed" not in o._config
-    # the JAX package's own keys are those of the parallel layer (A.14)
-    jax_only = {"parallel:domain_decomposition", "parallel:particle_sharding",
+    # the parallel layer's keys (A.14) included, the same keys
+    assert set(res["torch"]._config) == set(res["jax"]._config)
+    for key in ("parallel:domain_decomposition", "parallel:particle_sharding",
                 "parallel:tile_capacity_factor", "parallel:tile_grid",
-                "export:sharded"}
-    assert set(res["torch"]._config) == set(res["jax"]._config) - jax_only
+                "export:sharded"):
+        assert res["torch"].get_config(key) == res["jax"].get_config(key)
 
 
 # ---------------------------------------------------- run diagnostics -----

@@ -547,8 +547,8 @@ def test_ml_correction_matches_jax():
 def test_get_model_names_the_zoo():
     """Every model of the JAX package's registry resolves to the port's
     class and ``eulerdrift`` imports; the plots that raised naming A.13
-    draw now, and what is still to come is the domain decomposition
-    (A.14), whose one stub raises naming its item."""
+    draw now, and the domain decomposition (A.14) runs: a tiled run
+    resolves to its tiles and keeps every element."""
     import opendrift_tpu
     import opendrift_tpu_torch
     from opendrift_tpu_torch.models import eulerdrift
@@ -569,15 +569,29 @@ def test_get_model_names_the_zoo():
     import matplotlib
     matplotlib.use("Agg")
     assert grid.plot().get_images()[0].get_array().shape == (8, 8)
+    import matplotlib.pyplot as plt
+    plt.close("all")
     from opendrift_tpu_torch.fields import ArrayReader
     reader = ArrayReader({"x_sea_water_velocity":
                           np.zeros((2, 3, 4), np.float32)},
                          np.arange(4.0), np.arange(3.0) + 60.0,
                          [T0, T0 + timedelta(hours=1)])
-    pos = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        reader.sample({"packed_deferred": None}, ["x_sea_water_velocity"],
-                      np.float32(0.0), pos, pos + 60.0, pos)
+    o = opendrift_tpu_torch.get_model("OceanDrift")(loglevel=40,
+                                                    device="cpu")
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    o.set_config("parallel:domain_decomposition", True)
+    o.set_mesh(["cpu"] * 2)
+    o.add_reader(ArrayReader({"x_sea_water_velocity":
+                              np.full((2, 40, 8), 0.2, np.float32),
+                              "y_sea_water_velocity":
+                              np.full((2, 40, 8), 0.1, np.float32)},
+                             np.linspace(0.0, 4.0, 8),
+                             np.linspace(60.0, 62.0, 40),
+                             [T0, T0 + timedelta(hours=1)]))
+    o.seed_elements(lon=1.5, lat=61.0, number=16, radius=1000, time=T0)
+    o.run(steps=2, time_step=600)
+    assert o._dd is not None and o._dd.n_tiles == 2
+    assert np.isfinite(o.result["lon"].values).all()
     with pytest.raises(ValueError):
         opendrift_tpu_torch.get_model("NoSuchModel")
 
