@@ -31,7 +31,12 @@ printing its own line:
    pipe and the issue bound they set (``opendrift_tpu_torch/tools/sass.py``;
    "not available" without a ``cuobjdump``); the row gathers bit for bit
    on rows of 10 to 4096 bytes, each case naming the route it took (bulk
-   copies or the ``cp.async`` ring);
+   copies or the ``cp.async`` ring); the Philox kernel of
+   ``general:rng='rbg'`` (``philox_bits``) equal to the bit to its plain
+   version at 2M words, at the main path's (2, 2M) draw, at a (2, 2M)
+   shard of a longer axis, with a key whose counter carries across both
+   64-bit halves and at ragged shapes, timed at (2M,) and (2, 2M) beside
+   the threefry ``rng.bits`` of the same shapes;
 3. main path: ``OceanDrift(device="cuda")`` on a synthetic 3D z-level
    ``ArrayReader``, 2M elements, RK4 + Visser mixing (windspeed_Large1994,
    through the windspeed kernel) after one untimed interval that takes the
@@ -40,6 +45,11 @@ printing its own line:
    diffusivity (through the profile kernel); each run is checked to have
    gone through its kernel, and one interval of the first is profiled
    (kernels by device time, the device's busy share);
+3a. rbg path: the first run again with ``general:rng='rbg'``, 2M elements,
+   three intervals: its diffusion normals through ``philox_bits`` (the
+   launches a step are printed), its mixing seed the rbg scalar draw;
+   checked as the first run, with the windspeed kernel once a step; its
+   steps-alone rate beside the first run's threefry rate;
 4. coast path: a default ``OceanDrift(device="cuda")`` run with no
    landmask setting, so that the bundled coastline raster is added as the
    automatic landmask, on the same ocean moved to Lofoten (12-16 E, 67-69
@@ -172,6 +182,16 @@ printing its own line:
    then ShipDrift's peak memory in a 2M-element step and OpenBerg's
    2M-element step time; ``geotiff_card_against_cpu``: the GeoTIFF-seeded
    OpenOil configuration at 4,096 elements (every status equal);
+   ``rbg_card_against_cpu``: the first small run under 'rbg' with
+   horizontal diffusion (every status equal, the slice tolerance);
+   ``parity_goldens`` (phase 14): every scenario of
+   ``opendrift_tpu_torch/tools/parity_compare.py`` with bundled data (21
+   of 27: the reference OpenDrift's goldens of the double gyre, the
+   constant-wind, stranding and mixing runs, OpenOil's two budgets, the
+   zoo and chemistry models and the Eulerian field) on the card, each
+   within the bounds of the JAX package's golden tests, in at most
+   ``PARITY_BUDGET_S``; the six that read the reference's forcing files
+   are listed as "no data";
 11. scripts: ``python -m opendrift_tpu_torch.scripts.readerinfo`` on the
    NetCDF path's ocean file, and the GUI's ``GuiController`` running
    OceanDrift on that file at 100,000 elements on the card (checked: both
@@ -792,10 +812,12 @@ def simulation(device, n, model, hdiff, seed=0, forcing_kw=None):
     return o
 
 
-def run_main_path(n, intervals, model):
-    """One user-level run on the card; returns (simulation, seconds)."""
+def run_main_path(n, intervals, model, rng="threefry"):
+    """One user-level run on the card with ``general:rng`` = ``rng``;
+    returns (simulation, seconds)."""
     import torch
     o = simulation("cuda", n, model, hdiff=10.0)
+    o.set_config("general:rng", rng)
     torch.cuda.synchronize()
     t = time.perf_counter()
     o.run(duration=timedelta(seconds=900 * 10 * intervals), time_step=900,
@@ -918,6 +940,138 @@ def final_moments(o):
     return {"lon_spread_m": float(np.std(lon[ok]) * 111320.0 * coslat),
             "lat_spread_m": float(np.std(lat[ok]) * 111320.0),
             "z_mean": float(np.mean(z[ok])), "z_std": float(np.std(z[ok]))}
+
+
+# ------------------------------------------------------------ phase 3a ----
+
+# the rbg path's draws: the diffusion normals of a 2M-element step are one
+# (2, 2M) draw; a shard of a particle-sharded run draws a (2, n) block of a
+# longer axis at an offset inside a Philox block; the carrying key wraps
+# both 64-bit halves of the counter
+PHILOX_N = 2_000_000
+PHILOX_SHARD = (1_000_003, 4_000_006)           # (offset, n_global)
+PHILOX_CARRY_KEY = (0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFD, 0xFFFFFFFF)
+# a counter's 10 rounds: two multiply-highs, two multiplies, four xors and
+# two key additions each, for its four words
+PHILOX_OPS_PER_WORD = 10 * 10 / 4
+PHILOX_REPLACES = ("none: XLA's RngBitGenerator under jax.random.key(seed, "
+                   "impl='rbg'), opendrift_tpu/models/base.py:1161")
+
+
+def philox_cases(n=PHILOX_N):
+    """(label, key words, lead, last, offset, n_global) of each check."""
+    from opendrift_tpu_torch import rng
+    key = tuple(rng.fold_in(rng.rbg_key(7), 3))
+    offset, n_global = PHILOX_SHARD
+    return [("words", key, 1, n, 0, n),
+            ("main_path", key, 2, n, 0, n),
+            ("shard", key, 2, n, offset, n_global),
+            ("carry", PHILOX_CARRY_KEY, 2, n, 0, n),
+            # the last shard of a padded sharded run: rows run past
+            # n_global into the next row's words
+            ("padded_shard", key, 2, 13, 91, 100),
+            ("ragged_1", key, 1, 1, 0, 1),
+            ("ragged_3x5", key, 3, 5, 2, 11)]
+
+
+def check_philox(device, n=PHILOX_N, timed=True):
+    """``philox_bits`` against ``philox_bits_plain`` on ``device``, equal
+    to the bit in every case of :func:`philox_cases`; with ``timed`` its
+    kernel row at the main path's (2, 2M) draw, and the threefry
+    ``rng.bits`` of the same shapes beside it."""
+    import torch
+    from opendrift_tpu_torch import rng
+    from opendrift_tpu_torch.ops import philox
+    from opendrift_tpu_torch.tools.kernel_check import cuda_ms, device_ms
+    times = {}
+    for label, key, lead, last, offset, n_global in philox_cases(n):
+        got = philox.philox_bits(key, lead, last, offset, n_global, device)
+        want = philox.philox_bits_plain(key, lead, last, offset, n_global,
+                                        device)
+        equal = bool(torch.equal(got, want))
+        log("kernel_check", kernel="philox_bits", case=label,
+            shape=[lead, last], offset=offset, n_global=n_global,
+            equal=equal, max_abs_err=float((got - want).abs().max()))
+        if not equal:
+            raise AssertionError(f"philox_bits {label} differs from its "
+                                 "plain version")
+        if not timed or label not in ("words", "main_path"):
+            continue
+        tf_key = rng.fold_in(rng.PRNGKey(7), 3)
+        shape = (lead, last) if lead > 1 else (last,)
+        times[label] = {
+            "ms": cuda_ms(lambda: philox.philox_bits(key, lead, last,
+                                                     device=device)),
+            "device_ms": device_ms(lambda: philox.philox_bits(
+                key, lead, last, device=device)),
+            "plain_ms": cuda_ms(lambda: philox.philox_bits_plain(
+                key, lead, last, 0, last, device), warmup=1, reps=5),
+            "threefry_ms": cuda_ms(lambda: rng.bits(tf_key, shape, device),
+                                   warmup=1, reps=5),
+            "threefry_device_ms": device_ms(
+                lambda: rng.bits(tf_key, shape, device), launches=5,
+                reps=3),
+            "words": lead * last}
+        nbytes = lead * last * 8                 # int64 words written once
+        nops = lead * last * PHILOX_OPS_PER_WORD
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_OPS_PER_S * 1e3
+        times[label].update(bound_ms=max(t_bytes, t_ops), bytes=nbytes,
+                            bound_by="bytes" if t_bytes >= t_ops
+                            else "operations", ops=nops)
+        log("philox_time", case=label, shape=list(shape), **times[label])
+    if not timed:
+        return None
+    main = times["main_path"]
+    row = {"name": "philox_bits", "route": "cuda",
+           "source": "opendrift_tpu_torch/csrc/philox.cu",
+           "replaces": PHILOX_REPLACES, "launches": 0, "max_abs_err": 0.0,
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": None, "device_ms": main["device_ms"],
+           "threefry_ms": main["threefry_ms"],
+           "threefry_device_ms": main["threefry_device_ms"],
+           "shape": [2, n], "words_2m": times["words"],
+           "bytes": main["bytes"], "ops": main["ops"]}
+    log("kernel_time", **row)
+    return row
+
+
+def rbg_path(threefry_stats, n=2_000_000, intervals=3):
+    """The main path's run under ``general:rng='rbg'``: its diffusion
+    normals through ``philox_bits``, its mixing seed the rbg scalar draw
+    (on the host).  Returns (Philox launches, stats)."""
+    import torch
+    from opendrift_tpu_torch.ops import mixing, philox
+    mixing.visser_mixing.launches = 0
+    philox.philox_bits.launches = 0
+    o, secs = run_main_path(n, intervals, "windspeed_Large1994", rng="rbg")
+    launches = philox.philox_bits.launches
+    k1 = mixing.visser_mixing.launches
+    active = check_result(o, n, intervals + 1)
+    steps = 10 * intervals
+    loop_s = o.timers["main loop"]
+    readers_s = o.timers.get("main loop:readers", 0.0)
+    stats = {"elements": n, "steps": steps, "run_s": secs,
+             "main_loop_s": loop_s, "readers_s": readers_s,
+             "particle_steps_per_s": n * steps / secs,
+             "particle_steps_per_s_steps_only":
+                 n * steps / (loop_s - readers_s)}
+    log("rbg_path", model="windspeed_Large1994", active_share=active,
+        philox_launches=launches, philox_launches_per_step=launches / steps,
+        visser_mixing_launches=k1,
+        threefry_particle_steps_per_s_steps_only=threefry_stats[
+            "particle_steps_per_s_steps_only"],
+        threefry_particle_steps_per_s=threefry_stats[
+            "particle_steps_per_s"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **stats)
+    if k1 != steps:
+        raise AssertionError(f"the rbg path launched K1 {k1} times, not "
+                             f"once a step ({steps})")
+    if launches != steps:
+        raise AssertionError(f"the rbg path launched philox_bits {launches} "
+                             f"times, not once a step ({steps})")
+    return launches, stats
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -3126,13 +3280,15 @@ def oil_card_against_cpu(n=4096, intervals=2):
     return errs
 
 
-def card_against_cpu(n=4096, intervals=2):
-    """The same small run on the card and on the CPU, from one seed."""
+def card_against_cpu(n=4096, intervals=2, rng="threefry", hdiff=0.0):
+    """The same small run on the card and on the CPU, from one seed, with
+    ``general:rng`` = ``rng`` (every status equal under 'rbg')."""
     out = {}
     small = dict(nx=60, ny=60, nz=16, nt=5)
     for device in ("cuda", "cpu"):
-        o = simulation(device, n, "windspeed_Large1994", hdiff=0.0,
+        o = simulation(device, n, "windspeed_Large1994", hdiff=hdiff,
                        forcing_kw=small)
+        o.set_config("general:rng", rng)
         o.run(duration=timedelta(seconds=9000 * intervals), time_step=900,
               time_step_output=9000)
         out[device] = o.result
@@ -3144,8 +3300,51 @@ def card_against_cpu(n=4096, intervals=2):
         errs[var] = err
         if not ok:
             raise AssertionError(f"card and CPU disagree on {var}: {err}")
-    log("card_vs_cpu", elements=n, intervals=intervals, max_abs_err=errs)
+    status_equal = bool(np.array_equal(out["cuda"]["status"].values,
+                                       out["cpu"]["status"].values))
+    if rng == "rbg" and not status_equal:
+        raise AssertionError("rbg: card and CPU statuses differ")
+    log("card_vs_cpu", elements=n, intervals=intervals, rng=rng,
+        hdiff=hdiff, status_equal=status_equal, max_abs_err=errs)
     return errs
+
+
+def rbg_card_against_cpu(n=4096, intervals=2):
+    """The rbg path's small run, horizontal diffusion on."""
+    return card_against_cpu(n, intervals, rng="rbg", hdiff=10.0)
+
+
+# ------------------------------------------------------------- phase 14 ---
+
+PARITY_BUDGET_S = 120.0
+
+
+def parity_goldens(device="cuda"):
+    """Every scenario of ``opendrift_tpu_torch/tools/parity_compare.py``
+    with bundled data on ``device``, each within the bounds of the JAX
+    package's golden tests; the six that read the reference's forcing files
+    are listed as "no data" (absent from the repository)."""
+    from opendrift_tpu_torch.tools import parity_compare as parity
+    t = time.perf_counter()
+    status = {}
+    for name in parity.SCENARIOS:
+        rec = parity.check(name, device)
+        status[name] = rec["status"]
+        log("parity_golden", scenario=name, status=rec["status"],
+            seconds=rec.get("seconds"),
+            beyond=[r for r in rec.get("rows", []) if not r["ok"]])
+        if rec["status"] == "fail":
+            raise AssertionError(f"{name} on {device} is beyond its bound: "
+                                 f"{rec['rows']}")
+    secs = time.perf_counter() - t
+    passed = sorted(k for k, v in status.items() if v == "pass")
+    no_data = sorted(k for k, v in status.items() if v == "no data")
+    log("parity_goldens", passed=len(passed), no_data=no_data,
+        seconds=secs, budget_s=PARITY_BUDGET_S)
+    if secs > PARITY_BUDGET_S:
+        raise AssertionError(f"the parity goldens took {secs:.1f} s, over "
+                             f"their {PARITY_BUDGET_S} s")
+    return passed
 
 
 def sampler_card_against_cpu(n=4096, intervals=2):
@@ -3602,15 +3801,16 @@ def main():
               file=sys.stderr)
         return 1
     from concurrent.futures import ThreadPoolExecutor
-    from opendrift_tpu_torch.ops import gather, mixing
+    from opendrift_tpu_torch.ops import gather, mixing, philox
 
     kind = torch.cuda.get_device_name(0)
     power = power_line()
     t = time.perf_counter()
-    # one nvcc per source, both started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(max_workers=3) as pool:
         for built in [pool.submit(mixing.load_library),
-                      pool.submit(gather.load_library)]:
+                      pool.submit(gather.load_library),
+                      pool.submit(philox.load_library)]:
             built.result()
 
     def ptxas(report):
@@ -3621,7 +3821,9 @@ def main():
         python=sys.version.split()[0],
         build_s=time.perf_counter() - t, nvcc_flags=mixing.NVCC_FLAGS,
         gather_nvcc_flags=gather.NVCC_FLAGS, ptxas=ptxas(mixing.build_log),
-        gather_ptxas=ptxas(gather.build_log))
+        gather_ptxas=ptxas(gather.build_log),
+        philox_nvcc_flags=philox.NVCC_FLAGS,
+        philox_ptxas=ptxas(philox.build_log))
 
     seconds = {"build": time.perf_counter() - t}
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3660,7 +3862,9 @@ def run_phases(kind, power, t, seconds, workdir):
     timed("quotient_sweep", quotient_sweep)
     timed("sass_phase", sass_phase, rows)
     rows.update(timed("check_gather_kernels", check_gather_kernels, "cuda"))
+    rows["philox_bits"] = timed("check_philox", check_philox, "cuda")
     launches, stats = timed("main_path", main_path)
+    launches["philox_bits"], _ = timed("rbg_path", rbg_path, stats)
     coast_launches, coast_stats = timed("coast_path", coast_path)
     netcdf_launches, netcdf_stats = timed("netcdf_path", netcdf_path, files)
     roms_launches, roms_stats = timed("roms_path", roms_path, files)
@@ -3716,6 +3920,7 @@ def run_phases(kind, power, t, seconds, workdir):
         "gml": gml_launches}
     for name in ("gather_rows_async", "gather_rows_smem"):
         rows[name]["paths"] = {"gather_ab": launches[name]}
+    rows["philox_bits"]["paths"] = {"rbg_main": launches["philox_bits"]}
     for name, fn in (("prefetch_ab", prefetch_ab),
                      ("tiers_and_storages", tiers_and_storages),
                      ("generic_loop", generic_loop_phase),
@@ -3723,7 +3928,9 @@ def run_phases(kind, power, t, seconds, workdir):
                      ("oil_card_against_cpu", oil_card_against_cpu),
                      ("sampler_card_against_cpu", sampler_card_against_cpu),
                      ("coast_card_against_cpu", coast_card_against_cpu),
-                     ("zoo_card_against_cpu", zoo_card_against_cpu)):
+                     ("zoo_card_against_cpu", zoo_card_against_cpu),
+                     ("rbg_card_against_cpu", rbg_card_against_cpu),
+                     ("parity_goldens", parity_goldens)):
         timed(name, fn)
     timed("netcdf_card_against_cpu", netcdf_card_against_cpu, small_files)
     timed("roms_card_against_cpu", roms_card_against_cpu, small_files)

@@ -15,7 +15,8 @@ matches upstream; the internals follow the JAX package:
   order reproduces the reference main loop (basemodel/__init__.py:
   2193-2304).
 * Random numbers come from one base key folded per (interval, step, use),
-  with threefry bit-equal to the JAX package's (``rng.py``).
+  with threefry, or with ``general:rng='rbg'`` Philox, bit-equal to the
+  JAX package's (``rng.py``).
 * Over a mesh of several tiles (``set_mesh``, by default the visible CUDA
   cards) the run shards its elements (``parallel:particle_sharding``,
   ``parallel/mesh.py``) or decomposes the primary forcing grid with halo
@@ -156,8 +157,12 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                 "type": "enum", "enum": ["threefry", "rbg"],
                 "default": "threefry", "level": CONFIG_LEVEL_ADVANCED,
                 "description": "Counter-based PRNG of the stochastic "
-                "processes. 'threefry' is bit-reproducible across backends; "
-                "the TPU-only 'rbg' is not available in this port"},
+                "processes. 'threefry' is bit-reproducible across backends "
+                "(like the reference's seeded numpy, basemodel "
+                "__init__.py:270-326); 'rbg' is the Philox4x32-10 stream "
+                "XLA's CPU and GPU backends give RngBitGenerator (not a "
+                "TPU's hardware stream), drawn by a CUDA kernel on the "
+                "card: same statistics, another stream"},
             "general:profile_dir": {
                 "type": "str", "default": "",
                 "level": CONFIG_LEVEL_ADVANCED,
@@ -1047,10 +1052,6 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             self.start_time = all_times.min() if dt > 0 else all_times.max()
             self.time_step = timedelta(seconds=dt)
             self.time_step_output = timedelta(seconds=K * dt)
-        if self.get_config("general:rng") != "threefry":
-            raise NotImplementedError(
-                "general:rng='rbg' is the TPU hardware generator; the port "
-                "has threefry only")
         if self.get_config("seed:ocean_only"):
             for s in self._seedings:
                 s["lon"], s["lat"] = self.closest_ocean_points(
@@ -1164,7 +1165,11 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                         self._n_padded_elements, mesh.n_tiles)
         else:
             state = element_state_from_numpy(state_np, self.device)
-        return advance, final_snap, state, rng.PRNGKey(self.rng_seed)
+        if self.get_config("general:rng") == "rbg":
+            base_key = rng.rbg_key(self.rng_seed)
+        else:
+            base_key = rng.PRNGKey(self.rng_seed)
+        return advance, final_snap, state, base_key
 
     def _build_initial_state(self, dt):
         """Host arrays of the initial state (every element NOT_RELEASED,

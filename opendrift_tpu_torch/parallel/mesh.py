@@ -12,8 +12,9 @@ rank of ``torch.distributed`` form the global mesh, rank-major
 (``multihost``).
 
 The random draws stay those of the unsharded run: each tile draws the
-threefry counters of its global slots (``rng.element_partition``), as
-JAX's partitionable threefry does over a sharded axis.  A few model steps
+threefry (or rbg Philox) words of its global slots
+(``rng.element_partition``), as JAX's partitionable threefry and its
+sharded rbg draw do over a sharded axis.  A few model steps
 reduce over every element (OpenOil's mean droplet volume and slick
 histogram, a wave field's "any wave at all" test); JAX's partitioner
 makes those global.  Here each tile steps on a thread of its own, and

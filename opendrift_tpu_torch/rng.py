@@ -1,4 +1,5 @@
-"""Threefry-2x32 keys, bit-equal to ``jax.random`` (partitionable mode).
+"""Threefry-2x32 and rbg keys, bit-equal to ``jax.random`` (partitionable
+mode).
 
 The JAX engine derives every random number from one base key by
 ``jax.random.fold_in`` per (interval, step, use) and draws with
@@ -26,6 +27,16 @@ draws the counters of those global slots: :func:`bits` takes the
 ``partition=(offset, N)`` of its last axis, and inside
 :func:`element_partition` every draw whose last axis is the shard's
 length takes it from there, so the model code draws unchanged.
+
+``general:rng='rbg'`` (:func:`rbg_key`) gives :class:`RbgKey`, the four
+words of ``jax.random.key(seed, impl="rbg")``.  Its seed, ``fold_in`` and
+``split`` are threefry's on each half (jax ``prng.py`` ``_rbg_seed``,
+``_rbg_fold_in``, ``_rbg_split``); its bits are the Philox4x32-10 stream
+that XLA's CPU and GPU backends give ``RngBitGenerator`` (a TPU's hardware
+generator gives other bits), drawn by the kernel of ``ops/philox.py`` on
+the card.  A partitioned rbg draw is the slice of the global draw too,
+as the JAX package's particle-sharded runs draw it.  Every function here
+takes either key, so the model code draws unchanged.
 """
 
 import contextlib
@@ -34,6 +45,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .ops import philox
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -47,6 +60,23 @@ class Key:
 
     def __iter__(self):
         return iter((self.k1, self.k2))
+
+
+@dataclass(frozen=True)
+class RbgKey:
+    """An rbg key: four uint32 words held as Python ints, as
+    ``jax.random.key_data`` gives them; two threefry halves (w0, w1) and
+    (w2, w3) for ``fold_in`` and ``split``, the Philox state for bits."""
+    w0: int
+    w1: int
+    w2: int
+    w3: int
+
+    def __iter__(self):
+        return iter((self.w0, self.w1, self.w2, self.w3))
+
+    def halves(self):
+        return Key(self.w0, self.w1), Key(self.w2, self.w3)
 
 
 def _rotl(x, r):
@@ -75,15 +105,25 @@ def PRNGKey(seed):
     return Key(0, int(seed) & _M32)
 
 
+def rbg_key(seed):
+    """``jax.random.key(seed, impl="rbg")``: the threefry seed twice."""
+    k = PRNGKey(seed)
+    return RbgKey(k.k1, k.k2, k.k1, k.k2)
+
+
 def fold_in(key, data):
-    """``jax.random.fold_in``: hash the counter pair (0, data)."""
+    """``jax.random.fold_in``: hash the counter pair (0, data); an rbg key
+    folds each half."""
+    if isinstance(key, RbgKey):
+        h0, h1 = (fold_in(h, data) for h in key.halves())
+        return RbgKey(*h0, *h1)
     return Key(*threefry2x32(key.k1, key.k2, 0, int(data) & _M32))
 
 
 def split(key, num=2):
     """``jax.random.split``: under ``jax_threefry_partitionable`` the i-th
     key is the hash of the counter pair (0, i), which is
-    ``fold_in(key, i)``."""
+    ``fold_in(key, i)``; for an rbg key on each half."""
     return tuple(fold_in(key, i) for i in range(num))
 
 
@@ -116,13 +156,27 @@ def bits(key, shape=(), device=None, partition=None):
     values on ``device``.  ``partition=(offset, n_global)``: the last
     axis is elements [offset, offset + shape[-1]) of an axis of
     ``n_global``, and the values are those of that slice of the global
-    draw (default: the active :func:`element_partition`, if any)."""
+    draw (default: the active :func:`element_partition`, if any).  An rbg
+    key draws through :func:`ops.philox.philox_bits` (its kernel on a CUDA
+    device)."""
+    rbg = isinstance(key, RbgKey)
     if shape == ():
+        if rbg:
+            words = tuple(key)
+            return philox.philox4x32(*words[:2],
+                                     *philox.counter_words(words, 0))[0]
         b1, b2 = threefry2x32(key.k1, key.k2, 0, 0)
         return b1 ^ b2
     shape = tuple(int(s) for s in shape)
     if partition is None:
         partition = _active_partition(shape)
+    if rbg:
+        # an unpartitioned draw is the partition (0, shape[-1]): row r
+        # starts at word r * shape[-1], the row-major stream
+        lead = int(np.prod(shape[:-1]))
+        return philox.philox_bits(tuple(key), lead, shape[-1],
+                                  *(partition or (0, shape[-1])),
+                                  device=device).reshape(shape)
     if partition is None:
         n = int(np.prod(shape))
         if n >= 1 << 32:

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from opendrift_tpu_torch import examples
-from opendrift_tpu_torch.ops import mixing
+from opendrift_tpu_torch.ops import mixing, philox
 from opendrift_tpu_torch.tools import kernel_check
 
 MODELS = list(mixing.WINDSPEED_MODELS)
@@ -287,7 +287,7 @@ def test_oil_kernel_equals_plain_on_the_card(at_surface, keep_diam):
     torch.cuda.synchronize()
 
 
-def _run(device, model):
+def _run(device, model, **config):
     from opendrift_tpu_torch.models import OceanDrift
     from opendrift_tpu_torch.fields import ArrayReader
     r = np.random.default_rng(0)
@@ -314,6 +314,8 @@ def _run(device, model):
     o.set_config("drift:vertical_mixing", True)
     o.set_config("vertical_mixing:diffusivitymodel", model)
     o.set_config("environment:fallback:ocean_vertical_diffusivity", 1e-3)
+    for key, value in config.items():
+        o.set_config(key, value)
     o.seed_elements(lon=r.uniform(3.5, 4.5, 512),
                     lat=r.uniform(59.4, 60.1, 512),
                     z=-r.uniform(0, 20, 512), time=t0)
@@ -336,6 +338,51 @@ def test_run_on_the_card_matches_the_cpu(model):
         a = np.asarray(card[var].values, np.float64)
         b = np.asarray(cpu[var].values, np.float64)
         assert np.array_equal(np.isnan(a), np.isnan(b))
+        d = np.abs(a - b)[~np.isnan(b)]
+        assert np.median(d) <= median_atol and np.mean(
+            d > outlier_atol) <= 0.02, (var, d.max())
+
+
+PHILOX_KEY = (276534068, 1641862660, 276534068, 1641862660)
+PHILOX_CARRY_KEY = (0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFD, 0xFFFFFFFF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,lead,last,offset,n_global", [
+    (PHILOX_KEY, 1, 1, 0, 1), (PHILOX_KEY, 3, 5, 2, 11),
+    (PHILOX_KEY, 2, 13, 91, 100),
+    (PHILOX_KEY, 1, 2_000_000, 0, 2_000_000),
+    (PHILOX_KEY, 2, 2_000_000, 1_000_003, 4_000_006),
+    (PHILOX_CARRY_KEY, 2, 4097, 0, 4097)])
+def test_philox_bits_equal_plain_on_the_card(key, lead, last, offset,
+                                             n_global):
+    _card()
+    before = philox.philox_bits.launches
+    got = philox.philox_bits(key, lead, last, offset, n_global, "cuda")
+    want = philox.philox_bits_plain(key, lead, last, offset, n_global,
+                                    "cuda")
+    torch.cuda.synchronize()
+    assert philox.philox_bits.launches == before + 1
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_rbg_run_on_the_card_matches_the_cpu():
+    """general:rng='rbg' with horizontal diffusion: the normals through
+    the Philox kernel on the card, its plain version on the CPU; every
+    status equal, the slice tolerance."""
+    _card()
+    before = philox.philox_bits.launches
+    config = {"general:rng": "rbg", "drift:horizontal_diffusivity": 10.0}
+    card = _run("cuda", "windspeed_Large1994", **config)
+    assert philox.philox_bits.launches >= before + 20   # once a step
+    cpu = _run("cpu", "windspeed_Large1994", **config)
+    np.testing.assert_array_equal(card["status"].values,
+                                  cpu["status"].values)
+    bounds = {"lon": (1e-6, 1e-4), "lat": (1e-6, 1e-4), "z": (1e-4, 0.1)}
+    for var, (median_atol, outlier_atol) in bounds.items():
+        a = np.asarray(card[var].values, np.float64)
+        b = np.asarray(cpu[var].values, np.float64)
         d = np.abs(a - b)[~np.isnan(b)]
         assert np.median(d) <= median_atol and np.mean(
             d > outlier_atol) <= 0.02, (var, d.max())

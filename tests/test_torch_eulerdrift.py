@@ -11,17 +11,13 @@ the field, 1e-4 on its sum).
 """
 
 import logging
-import os
-import sys
 from datetime import datetime, timedelta
 
 import numpy as np
 import pytest
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-
-import parity_compare  # noqa: E402
+from opendrift_tpu_torch.tools import parity_compare as parity
 
 FIELD_RTOL = 1e-5
 
@@ -189,36 +185,8 @@ def test_opendrift_reader_wraps_a_port_reader():
 
 def test_eulerdrift_field_matches_reference():
     """The reference's ExplSimulation after 360 steps of constant
-    advection and diffusion (tools/parity_compare.py
-    ``run_eulerdrift_field``, the source patch placed in the reference's
-    index space), cell for cell at the JAX test's 1e-5."""
-    from opendrift_tpu_torch.models import eulerdrift as ed
-    from opendrift_tpu_torch.utils import crs as crslib
-    golden, cfg = parity_compare.load_golden("eulerdrift_field")
-    ny, nx = cfg["shape"]
-    sim = ed.ExplSimulation.new(lon0=cfg["lon0"], lat0=cfg["lat0"],
-                                res=cfg["res"], shape=(ny, nx),
-                                device="cpu")
-    sim.readers.append(ed.ConstantReader.new_xy(cfg["u"], cfg["v"]))
-    sim.D = cfg["D"]
-    zone = int((cfg["lon0"] + 180.0) // 6) + 1
-    if 56 <= cfg["lat0"] < 64 and 3 <= cfg["lon0"] < 12:
-        zone = 32
-    refp = crslib.from_proj4(f"+proj=utm +zone={zone} +north "
-                             "+ellps=WGS84 +datum=WGS84 +units=m")
-    x0, y0 = refp.fwd(np, np.float64(cfg["lon0"]), np.float64(cfg["lat0"]))
-    ref_x = np.linspace(float(x0), float(x0) + nx * cfg["res"], nx)
-    ref_y = np.linspace(float(y0), float(y0) + ny * cfg["res"], ny)
-    xs, ys = refp.fwd(np, np.float64(cfg["src_lon"]),
-                      np.float64(cfg["src_lat"]))
-    ix0 = int(np.argmin(np.abs(ref_x - xs)))
-    iy0 = int(np.argmin(np.abs(ref_y - ys)))
-    k = np.arange(cfg["N"]) - (cfg["N"] - 1) / 2.0
-    g = np.exp(-0.5 * (k * cfg["res"] / cfg["sigma"]) ** 2)
-    sim.grid._update_slice(np.outer(g, g).T, iy0, ix0)
-    sim.integrate(dt=cfg["dt"], max_steps=cfg["steps"])
-    ours = sim.grid.field.numpy().astype(np.float64).T
-    ref = np.asarray(golden["field"], np.float64)
-    assert ours.shape == ref.shape
-    assert np.abs(ours - ref).max() < 1e-5
-    assert abs(ours.sum() - ref.sum()) < 1e-4
+    advection and diffusion (the source patch placed in the reference's
+    index space), cell for cell at the JAX test's 1e-5, through the port's
+    parity tool."""
+    rec = parity.check("eulerdrift_field", "cpu")
+    assert rec["status"] == "pass", rec

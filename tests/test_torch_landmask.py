@@ -30,11 +30,10 @@ from opendrift_tpu_torch.fields import GlobalLandmask, ShapeReader
 from opendrift_tpu_torch.utils import shapefile as tshapefile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(REPO, "tools"))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-import parity_compare  # noqa: E402
+from opendrift_tpu_torch.tools import parity_compare as parity  # noqa: E402
 
 T0 = datetime(2024, 3, 1)
 
@@ -359,31 +358,12 @@ def test_auto_landmask_decisions_match_jax(case):
 
 def test_arctic20_stranding_golden():
     """The reference OpenDrift's stranding trajectories on the bundled
-    coastline, through the port, at the bounds of
+    coastline, through the port's parity tool at the bounds of
     tests/test_reference_trajectory_parity.py."""
-    from test_reference_trajectory_parity import TOLERANCES
-    from opendrift_tpu_torch.models import OceanDrift
-    golden, cfg = parity_compare.load_golden("arctic20_stranding")
-    o = OceanDrift(loglevel=40, device="cpu")
-    o.set_config("environment:fallback:x_sea_water_velocity", cfg["u"])
-    o.set_config("environment:fallback:y_sea_water_velocity", cfg["v"])
-    o.set_config("drift:advection_scheme", "euler")
-    o.set_config("drift:vertical_mixing", False)
-    o.set_config("drift:vertical_advection", False)
-    o.set_config("general:coastline_action", "stranding")
-    o.set_config("general:use_auto_landmask", False)
-    o.add_reader(GlobalLandmask())
-    o.seed_elements(lon=np.asarray(cfg["seed_lon"]),
-                    lat=np.asarray(cfg["seed_lat"]),
-                    time=datetime(2021, 3, 1))
-    o.run(duration=timedelta(seconds=cfg["duration_s"]),
-          time_step=cfg["time_step"])
-    stats = parity_compare.compare("arctic20_stranding", o, golden)
-    max_tol, final_tol = TOLERANCES["arctic20_stranding"]
-    assert stats["shape_ref"] == stats["shape_our"]
-    assert stats["finite_mismatch"] == 0, stats
-    assert stats["max_m"] < max_tol, stats
-    assert stats["final_mean_m"] < final_tol, stats
+    golden, cfg = parity.load_golden("arctic20_stranding")
+    o = parity.RUNNERS["arctic20_stranding"](cfg, "cpu")
+    rows, stats = parity.check_trajectory("arctic20_stranding", o, golden)
+    assert all(r["ok"] for r in rows), (rows, stats)
     stranded = o.status_categories.index("stranded")
     assert (o.result["status"].values[:, -1] == stranded).any()
 

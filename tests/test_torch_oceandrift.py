@@ -15,18 +15,14 @@ these runs: lon/lat differ by at most 4e-6 degrees and z by at most 1e-4 m.
 The goldens keep the bounds of tests/test_reference_trajectory_parity.py.
 """
 
-import os
-import sys
 from datetime import datetime, timedelta
 
 import numpy as np
 import pytest
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-
-import parity_compare  # noqa: E402
-from opendrift_tpu_torch import interop, rng  # noqa: E402
+from opendrift_tpu_torch import interop, rng
+from opendrift_tpu_torch.tools import parity_compare as parity
 
 MEDIAN_ATOL = {"lon": 1e-6, "lat": 1e-6, "z": 1e-4}
 OUTLIER_ATOL = {"lon": 1e-4, "lat": 1e-4, "z": 0.1}
@@ -120,76 +116,23 @@ def test_3d_rk4_mixing_run_matches_jax(model, hdiff):
                                   "double_gyre_euler",
                                   "constant_wind_euler"])
 def test_matches_reference_golden(name):
-    """The reference OpenDrift's own trajectories, at the bounds of
-    tests/test_reference_trajectory_parity.py."""
-    from test_reference_trajectory_parity import TOLERANCES
-    golden, cfg = parity_compare.load_golden(name)
-    from opendrift_tpu_torch.models import OceanDrift
-    o = OceanDrift(loglevel=40, device="cpu")
-    o.set_config("environment:fallback:land_binary_mask", 0)
-    o.set_config("drift:advection_scheme", cfg["scheme"])
-    if name.startswith("double_gyre"):
-        from opendrift_tpu_torch.fields import DoubleGyre
-        r = DoubleGyre(epsilon=cfg["epsilon"], omega=cfg["omega"], A=cfg["A"])
-        o.add_reader(r)
-        lon, lat = r.xy2lonlat(np.asarray(cfg["seed_x"]),
-                               np.asarray(cfg["seed_y"]))
-        o.seed_elements(lon=lon, lat=lat, time=r.initial_time)
-    else:
-        for var, key in (("x_sea_water_velocity", "u"),
-                         ("y_sea_water_velocity", "v"), ("x_wind", "wind_u"),
-                         ("y_wind", "wind_v")):
-            o.set_config(f"environment:fallback:{var}", cfg[key])
-        o.seed_elements(lon=np.asarray(cfg["seed_lon"]),
-                        lat=np.asarray(cfg["seed_lat"]),
-                        time=datetime(2015, 9, 22, 6),
-                        wind_drift_factor=np.asarray(
-                            cfg["wind_drift_factor"]))
-    o.run(duration=timedelta(seconds=cfg["duration_s"]),
-          time_step=cfg["time_step"])
-    stats = parity_compare.compare(name, o, golden)
-    max_tol, final_tol = TOLERANCES[name]
-    assert stats["shape_ref"] == stats["shape_our"]
-    assert stats["finite_mismatch"] == 0, stats
-    assert stats["max_m"] < max_tol, stats
-    assert stats["final_mean_m"] < final_tol, stats
+    """The reference OpenDrift's own trajectories, through the port's
+    parity tool (its copies of the bounds of
+    tests/test_reference_trajectory_parity.py)."""
+    rec = parity.check(name, "cpu")
+    assert rec["status"] == "pass", rec
 
 
 def test_mixing_sundby_stat_golden():
     """The reference OpenDrift's Visser walk with the Sundby1983
-    diffusivity (3,000 elements, constant fallbacks, Euler), run as
-    tools/parity_compare.py runs it, at the statistical bounds of
+    diffusivity (3,000 elements, constant fallbacks, Euler), through the
+    port's parity tool, at the statistical bounds of
     tests/test_reference_stat_parity.py."""
-    from opendrift_tpu_torch.models import OceanDrift
-    golden, cfg = parity_compare.load_golden("mixing_sundby_stat")
-    o = OceanDrift(loglevel=40, device="cpu")
-    o.set_config("environment:fallback:land_binary_mask", 0)
-    o.set_config("environment:fallback:x_wind", cfg["wind_u"])
-    o.set_config("environment:fallback:y_wind", 0.0)
-    o.set_config("environment:fallback:sea_floor_depth_below_sea_level",
-                 cfg["seafloor"])
-    o.set_config("environment:fallback:ocean_mixed_layer_thickness",
-                 cfg["mld"])
-    o.set_config("drift:vertical_mixing", True)
-    o.set_config("vertical_mixing:diffusivitymodel", "windspeed_Sundby1983")
-    o.set_config("vertical_mixing:timestep", cfg["dt_mix"])
-    n = cfg["n"]
-    o.seed_elements(lon=np.full(n, 4.0), lat=np.full(n, 60.0),
-                    z=np.full(n, cfg["seed_z"]), time=datetime(2021, 6, 1),
-                    wind_drift_factor=np.zeros(n),
-                    terminal_velocity=np.zeros(n))
-    o.run(duration=timedelta(seconds=cfg["duration_s"]),
-          time_step=cfg["time_step"])
-    z_r = np.asarray(golden["z"], np.float64)[:, -1]
-    z_o = np.asarray(o.result["z"].values, np.float64)[:, -1]
-    assert z_o.shape == z_r.shape == (3000,)
-    assert abs(z_o.mean() - z_r.mean()) < 1.5, (z_o.mean(), z_r.mean())
-    assert abs(z_o.std() - z_r.std()) < 1.0, (z_o.std(), z_r.std())
-    for q in (5, 25, 50, 75, 95):
-        assert abs(np.percentile(z_o, q) - np.percentile(z_r, q)) < 2.5, q
-    f_r = (z_r < -cfg["mld"]).mean()
-    f_o = (z_o < -cfg["mld"]).mean()
-    assert abs(f_o - f_r) < 0.06, (f_o, f_r)
+    golden, cfg = parity.load_golden("mixing_sundby_stat")
+    o = parity.RUNNERS["mixing_sundby_stat"](cfg, "cpu")
+    assert o.result["z"].values.shape[0] == 3000
+    rows = parity.check_stat("mixing_sundby_stat", cfg, o, golden)
+    assert all(r["ok"] for r in rows), rows
 
 
 def _default_diffusivity_run(pkg):

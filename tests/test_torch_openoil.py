@@ -26,8 +26,6 @@ Tolerances, with their reasons:
   then sits at another depth.
 """
 
-import os
-import sys
 from datetime import datetime, timedelta
 
 import jax
@@ -36,14 +34,12 @@ import numpy as np
 import pytest
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-
-import parity_compare  # noqa: E402
-from opendrift_tpu.ops import pallas_mixing  # noqa: E402
-from opendrift_tpu.models.openoil import oil_db as joil_db  # noqa: E402
-from opendrift_tpu_torch import interop, rng  # noqa: E402
-from opendrift_tpu_torch.ops import mixing  # noqa: E402
-from opendrift_tpu_torch.models.openoil import oil_db as toil_db  # noqa: E402
+from opendrift_tpu.ops import pallas_mixing
+from opendrift_tpu.models.openoil import oil_db as joil_db
+from opendrift_tpu_torch import interop, rng
+from opendrift_tpu_torch.ops import mixing
+from opendrift_tpu_torch.models.openoil import oil_db as toil_db
+from opendrift_tpu_torch.tools import parity_compare as parity
 
 Z_ATOL = 2e-5
 FLIP_SHARE = 0.01
@@ -754,107 +750,21 @@ def test_surface_wave_mixing_matches_jax():
 
 # --------------------------------------------------- the reference golden -
 
-def _run_budget_golden(cfg):
-    """The port's copy of tools/parity_compare.py ``run_openoil_budget``."""
-    from opendrift_tpu_torch.models import OpenOil
-    o = OpenOil(loglevel=40, device="cpu")
-    o.set_config("environment:fallback:land_binary_mask", 0)
-    o.set_config("environment:fallback:x_wind", cfg["wind_u"])
-    o.set_config("environment:fallback:y_wind", cfg["wind_v"])
-    o.set_config("environment:fallback:x_sea_water_velocity", cfg["u"])
-    o.set_config("environment:fallback:y_sea_water_velocity", cfg["v"])
-    o.set_config("environment:fallback:sea_water_temperature", cfg["sst"])
-    o.set_config("drift:vertical_mixing", False)
-    o.set_config("processes:dispersion", False)
-    o.set_config("processes:evaporation", True)
-    o.set_config("processes:emulsification", True)
-    o.set_config("processes:biodegradation", True)
-    o.set_config("seed:m3_per_hour", cfg["m3_per_hour"])
-    n = cfg["n"]
-    o.seed_elements(lon=4.5, lat=60.0, radius=0, number=n,
-                    time=datetime(2022, 5, 1), oil_type=cfg["oil_type"],
-                    wind_drift_factor=np.full(n, cfg["wind_drift_factor"]))
-    o.run(duration=timedelta(seconds=cfg["duration_s"]),
-          time_step=cfg["time_step"],
-          time_step_output=cfg["time_step_output"])
-    return o
-
-
-def _run_full_golden(cfg):
-    """The port's copy of ``run_openoil_full``."""
-    from opendrift_tpu_torch.models import OpenOil
-    o = OpenOil(loglevel=40, device="cpu")
-    o.set_config("environment:fallback:land_binary_mask", 0)
-    o.set_config("environment:fallback:x_wind", cfg["wind_u"])
-    o.set_config("environment:fallback:y_wind", 0.0)
-    o.set_config("environment:fallback:x_sea_water_velocity", cfg["u"])
-    o.set_config("environment:fallback:y_sea_water_velocity", 0.0)
-    o.set_config("environment:fallback:sea_water_temperature", cfg["sst"])
-    o.set_config("environment:fallback:sea_floor_depth_below_sea_level",
-                 cfg["seafloor"])
-    o.set_config("drift:vertical_mixing", True)
-    o.set_config("vertical_mixing:timestep", cfg["dt_mix"])
-    o.set_config("processes:dispersion", True)
-    o.set_config("processes:evaporation", True)
-    o.set_config("processes:emulsification", True)
-    o.set_config("seed:m3_per_hour", cfg["m3_per_hour"])
-    o.seed_elements(lon=4.5, lat=60.0, radius=0, number=cfg["n"],
-                    time=datetime(2022, 5, 1), oil_type=cfg["oil_type"])
-    o.run(duration=timedelta(seconds=cfg["duration_s"]),
-          time_step=cfg["time_step"],
-          time_step_output=cfg["time_step_output"])
-    return o
-
-
 def test_weathering_budget_matches_reference_golden():
-    """The reference OpenDrift's surface weathering budget, at the bounds
-    of tests/test_reference_stat_parity.py."""
-    golden, cfg = parity_compare.load_golden("openoil_budget_surface")
-    res = _run_budget_golden(cfg).result
-    tot0 = np.nansum(np.asarray(golden["mass_oil"], np.float64), axis=0)[0]
-    for var, tol in (("mass_oil", 0.01), ("mass_evaporated", 0.01),
-                     ("mass_biodegraded", 0.005)):
-        g = np.nansum(np.asarray(golden[var], np.float64), axis=0)
-        m = np.nansum(np.asarray(res[var].values, np.float64), axis=0)
-        n = min(len(g), len(m))
-        rel = np.abs(m[:n] - g[:n]) / tot0
-        assert rel.max() < tol, (var, rel.max())
-    for var, tol in (("water_fraction", 0.02), ("oil_film_thickness", 1e-4)):
-        g = np.nanmean(np.asarray(golden[var], np.float64), axis=0)[-1]
-        m = np.nanmean(np.asarray(res[var].values, np.float64), axis=0)[-1]
-        assert abs(m - g) < tol, (var, m, g)
-    g = np.nanmean(np.asarray(golden["viscosity"], np.float64), axis=0)[-1]
-    m = np.nanmean(np.asarray(res["viscosity"].values, np.float64),
-                   axis=0)[-1]
-    assert abs(m - g) / g < 0.05, ("viscosity", m, g)
+    """The reference OpenDrift's surface weathering budget, through the
+    port's parity tool at the bounds of
+    tests/test_reference_stat_parity.py."""
+    rec = parity.check("openoil_budget_surface", "cpu")
+    assert rec["status"] == "pass", rec
 
 
 def test_full_weathering_budget_matches_reference_golden():
     """Dispersion, wave entrainment and mixing with resurfacing, through
     the oil kernel's plain version: the statistical bounds of
-    tests/test_reference_stat_parity.py on budget, emulsion and droplets."""
-    golden, cfg = parity_compare.load_golden("openoil_full_stat")
-    res = _run_full_golden(cfg).result
-    val = lambda v: np.asarray(res[v].values, np.float64)  # noqa: E731
-    tot_g = np.nansum(np.asarray(golden["mass_oil"], np.float64), axis=0)[0]
-    tot_o = np.nansum(val("mass_oil"), axis=0)[0]
-    for var, tol in (("mass_oil", 0.06), ("mass_evaporated", 0.04),
-                     ("mass_dispersed", 0.05)):
-        g = np.nansum(np.asarray(golden[var], np.float64), axis=0)[-1]
-        m = np.nansum(val(var), axis=0)[-1]
-        assert abs(m / tot_o - g / tot_g) < tol, (var, m / tot_o, g / tot_g)
-    assert np.nansum(val("mass_dispersed"), axis=0)[-1] / tot_o > 0.45
-    wf_g = np.nanmean(np.asarray(golden["water_fraction"])[:, -1])
-    assert abs(np.nanmean(val("water_fraction")[:, -1]) - wf_g) < 0.03
-    dg = np.asarray(golden["diameter"])[:, -1]
-    zg = np.asarray(golden["z"])[:, -1]
-    do, zo = val("diameter")[:, -1], val("z")[:, -1]
-    med_g = np.median(dg[(zg < 0) & (dg > 0)])
-    med_o = np.median(do[(zo < 0) & (do > 0)])
-    assert 0.5 < med_o / med_g < 2.0, (med_o, med_g)
-    assert 0.1 < (zo == 0).mean() < 0.7
-    assert -40.0 < np.nanmean(zo) < -5.0
-    assert np.nanpercentile(zo, 5) > -80.0
+    tests/test_reference_stat_parity.py on budget, emulsion and droplets,
+    through the port's parity tool."""
+    rec = parity.check("openoil_full_stat", "cpu")
+    assert rec["status"] == "pass", rec
 
 
 # ------------------------------------------- state with a (C, N) array ----

@@ -17,7 +17,6 @@ it); runs at the slice tolerance of ``tests/test_torch_oceandrift.py`` with
 every status equal.
 """
 
-import json
 import os
 import sys
 from datetime import timedelta
@@ -38,6 +37,7 @@ from opendrift_tpu.fields import mesh as JM  # noqa: E402
 from opendrift_tpu.fields import unstructured as JU  # noqa: E402
 from opendrift_tpu.utils import selafin as jselafin  # noqa: E402
 from opendrift_tpu_torch.fields import mesh as TM  # noqa: E402
+from opendrift_tpu_torch.tools import parity_compare as parity  # noqa: E402
 from opendrift_tpu_torch.fields import unstructured as TU  # noqa: E402
 from opendrift_tpu_torch.interop import device_state_from_numpy  # noqa
 from opendrift_tpu_torch.tools import synthetic_mesh as SM  # noqa: E402
@@ -46,14 +46,11 @@ from opendrift_tpu_torch.utils import selafin  # noqa: E402
 EXACT_ATOL = 1e-6
 WEIGHT_ATOL = 1e-6
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "goldens")
 KINDS = ("telemac", "schism", "shyfem", "fvcom")
 
 
 def _golden(kind):
-    d = np.load(os.path.join(GOLDENS, f"ref_traj_{kind}_values.npz"))
-    return d, json.loads(str(d["config"]))
+    return parity.load_golden(f"{kind}_values")
 
 
 def _open(mod, kind, sampling="regrid", use_3d=None):

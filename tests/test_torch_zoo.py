@@ -24,22 +24,17 @@ bit-equal uniforms and is within 2 ulp (XLA's ``log1p`` is its own
 polynomial).
 """
 
-import os
-import sys
 from datetime import datetime, timedelta
 
 import numpy as np
 import pytest
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-
-import parity_compare  # noqa: E402
-from opendrift_tpu_torch import rng  # noqa: E402
-from opendrift_tpu_torch.ops import physics as tph  # noqa: E402
-from opendrift_tpu_torch.tools import zoo_setups  # noqa: E402
-from test_torch_oceandrift import MEDIAN_ATOL, OUTLIER_ATOL, \
-    OUTLIER_SHARE  # noqa: E402
+from opendrift_tpu_torch import rng
+from opendrift_tpu_torch.ops import physics as tph
+from opendrift_tpu_torch.tools import parity_compare as parity
+from opendrift_tpu_torch.tools import zoo_setups
+from test_torch_oceandrift import MEDIAN_ATOL, OUTLIER_ATOL, OUTLIER_SHARE
 
 T0 = datetime(2021, 4, 1, 6)
 N = 64            # a multiple of the 8 virtual JAX devices
@@ -129,8 +124,9 @@ def _case(name):
     return cases[name]
 
 
-def _zoo_run(pkg, name):
+def _zoo_run(pkg, name, **extra_config):
     cls_name, readers, config, seed_kw, _ = _case(name)
+    config = {**config, **extra_config}
     if pkg == "jax":
         import opendrift_tpu.models as M
         from opendrift_tpu.fields import ArrayReader
@@ -265,96 +261,14 @@ GOLDENS = ["windblow_euler", "seaice_euler", "openberg_det", "leeway_stat",
            "larvalfish_stat", "shipdrift_stat", "sealice_stat"]
 
 
-def _golden_run(name):
-    golden, cfg = parity_compare.load_golden(name)
-    o, run_kw = zoo_setups.setup(name, cfg, "cpu")
-    o.run(**run_kw)
-    return golden, cfg, o
-
-
-def _final(ds, var):
-    return np.asarray(ds[var].values if hasattr(ds[var], "values")
-                      else ds[var], np.float64)[:, -1]
-
-
-def _cloud(lon, lat, lat0, lon0):
-    from opendrift_tpu_torch.utils.geodesic import inverse_np
-    az, _, dist = inverse_np(np.full(lon.shape[0], lat0),
-                             np.full(lon.shape[0], lon0), lat, lon)
-    return dist * np.sin(np.deg2rad(az)), dist * np.cos(np.deg2rad(az))
-
-
 @pytest.mark.parametrize("name", GOLDENS)
 def test_matches_reference_golden(name):
     """The reference OpenDrift's runs of the zoo under constant fallbacks
-    (tools/parity_compare.py's configurations, written out on the port's
-    classes in opendrift_tpu_torch/tools/zoo_setups.py), at the bounds of
-    the JAX package's tests."""
-    from test_reference_trajectory_parity import TOLERANCES
-    golden, cfg, o = _golden_run(name)
-    res = o.result
-    if name in TOLERANCES:                       # deterministic runs
-        stats = parity_compare.compare(name, o, golden)
-        max_tol, final_tol = TOLERANCES[name]
-        assert stats["shape_ref"] == stats["shape_our"]
-        assert stats["finite_mismatch"] == 0, stats
-        assert stats["max_m"] < max_tol, stats
-        assert stats["final_mean_m"] < final_tol, stats
-        return
-    z_r, z_o = _final(golden, "z"), _final(res, "z")
-    if name in ("leeway_stat", "shipdrift_stat"):
-        lat0, lon0 = (59.5, 2.0) if name == "leeway_stat" else (60.0, 4.0)
-        dx_r, dy_r = _cloud(_final(golden, "lon"), _final(golden, "lat"),
-                            lat0, lon0)
-        dx_o, dy_o = _cloud(_final(res, "lon"), _final(res, "lat"),
-                            lat0, lon0)
-        leeway = name == "leeway_stat"
-        assert abs(dx_o.mean() - dx_r.mean()) / dx_r.mean() < 0.03
-        assert abs(dy_o.mean() - dy_r.mean()) < (800.0 if leeway else 1000.0)
-        spread = 0.10 if leeway else 0.15
-        assert abs(dx_o.std() - dx_r.std()) / dx_r.std() < spread
-        assert abs(dy_o.std() - dy_r.std()) / dy_r.std() < spread
-        share = abs((dy_o < 0).mean() - (dy_r < 0).mean())
-        assert share < (0.05 if leeway else 0.08)
-    elif name == "plast_stat":
-        assert abs(np.nanmean(z_o) - np.nanmean(z_r)) < 0.4
-        assert abs(np.nanstd(z_o) - np.nanstd(z_r)) < 0.4
-        for q in (10, 50, 90):
-            assert abs(np.nanpercentile(z_o, q)
-                       - np.nanpercentile(z_r, q)) < 0.6, q
-        assert abs(np.nanmean(_final(res, "lon"))
-                   - np.nanmean(_final(golden, "lon"))) < 0.01
-    elif name == "sediment_stat":
-        assert abs(np.nanmean(z_o) - np.nanmean(z_r)) < 1.5
-        assert abs(np.nanstd(z_o) - np.nanstd(z_r)) < 1.5
-        m_r, m_o = _final(golden, "moving"), _final(res, "moving")
-        assert abs((m_o == 0).mean() - (m_r == 0).mean()) < 0.06
-        assert abs(np.nanmedian(z_o) - np.nanmedian(z_r)) < 0.5
-    elif name == "pelagicegg_stat":
-        assert abs(z_o.mean() - z_r.mean()) < 2.5, (z_o.mean(), z_r.mean())
-        assert abs(z_o.std() - z_r.std()) < 2.0, (z_o.std(), z_r.std())
-        for q in (5, 25, 50, 75, 95):
-            assert abs(np.percentile(z_o, q)
-                       - np.percentile(z_r, q)) < 3.5, q
-    elif name == "larvalfish_stat":
-        h_r, h_o = _final(golden, "hatched"), _final(res, "hatched")
-        np.testing.assert_array_equal(h_o, h_r)
-        for var, tol in (("stage_fraction", 1e-4), ("weight", 1e-3),
-                         ("length", 1e-3)):
-            a, b = _final(res, var), _final(golden, var)
-            sel = np.isfinite(b)
-            assert np.abs(a[sel] - b[sel]).max() < tol, var
-        for pop in (0, 1):          # eggs, larvae
-            sr, so = h_r == pop, h_o == pop
-            assert abs(np.nanmean(z_o[so]) - np.nanmean(z_r[sr])) < 1.2
-            assert abs(np.nanstd(z_o[so]) - np.nanstd(z_r[sr])) < 1.2
-    elif name == "sealice_stat":
-        np.testing.assert_allclose(_final(res, "degree_days"),
-                                   _final(golden, "degree_days"), atol=0.05)
-        assert abs(np.nanmean(z_o) - np.nanmean(z_r)) < 0.5
-        assert abs(np.nanstd(z_o) - np.nanstd(z_r)) < 0.5
-    else:
-        raise AssertionError(f"no bounds for {name}")
+    (the configurations of opendrift_tpu_torch/tools/zoo_setups.py),
+    through the port's parity tool at the bounds of the JAX package's
+    tests."""
+    rec = parity.check(name, "cpu")
+    assert rec["status"] == "pass", rec
 
 
 def test_zoo_configs_carry_the_goldens_scalars():
@@ -362,7 +276,7 @@ def test_zoo_configs_carry_the_goldens_scalars():
     goldens at hand) holds each golden's configuration but its
     per-element lists and its size."""
     for name in GOLDENS:
-        _, cfg = parity_compare.load_golden(name)
+        _, cfg = parity.load_golden(name)
         want = {k: v for k, v in cfg.items()
                 if not isinstance(v, list) and k != "n"}
         assert zoo_setups.CONFIGS[name] == want, name
