@@ -10,19 +10,25 @@ readers build as host arrays and this class copies to the device.  The
 next window's host packing can run on a worker thread beside the steps
 (``prefetch_device_states``); the copy to the device is always made by the
 thread that takes the states (``build_device_states``), on its stream.
+Each of these is a span of ``recorder`` (the simulation's
+:class:`~opendrift_tpu_torch.timer.Recorder`): the join, the packing and
+the copy under the caller's category, the worker's packing as
+``prefetch:pack`` on its own thread; the bytes copied and the windows
+packed on either thread are its counters.
 """
 
 import logging
 import threading
-import time
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..errors import VariableNotCoveredError
-from ..interop import device_state_from_numpy, resolve_device
+from ..interop import device_state_from_numpy, host_nbytes, \
+    resolve_device
 from .. import rng
+from ..timer import Recorder
 from .analytic import ConstantReader
 
 logger = logging.getLogger(__name__)
@@ -42,9 +48,12 @@ class Environment:
         self.uncertainty = []
         self._plan = None
         self._prefetch = None
+        # where the spans and counters go (the simulation sets its own)
+        self.recorder = Recorder()
         # seconds of host packing (on either thread), the part of them
         # spent on the prefetch thread, and seconds the caller of
-        # build_device_states waited for a prefetched window
+        # build_device_states waited for a prefetched window, from the
+        # spans of each
         self.pack_seconds = 0.0
         self.prefetched_pack_seconds = 0.0
         self.join_wait_seconds = 0.0
@@ -134,10 +143,9 @@ class Environment:
     # ----------------------------------------------------- window device IO
     def _pack_host_states(self, window_start, window_end):
         """Per plan entry the reader's host state, the exception its
-        packing raised, or None for a discarded reader; and the seconds it
-        took.  Host work only (numpy), so it may run on the worker thread:
-        it changes nothing of this object."""
-        t = time.perf_counter()
+        packing raised, or None for a discarded reader.  Host work only
+        (numpy), so it may run on the worker thread: it changes nothing of
+        this object."""
         packed = []
         for reader, served in self._plan:
             if reader.name in self.discarded_readers:
@@ -147,7 +155,7 @@ class Environment:
                 packed.append(reader.device_state(window_start, window_end))
             except Exception as e:  # noqa: BLE001 — any reader error counts
                 packed.append(e)
-        return packed, time.perf_counter() - t
+        return packed
 
     def prefetch_device_states(self, window_start, window_end):
         """Start packing a window's host states on a worker thread, so that
@@ -158,8 +166,9 @@ class Environment:
 
         def work():
             try:
-                result["packed"] = self._pack_host_states(window_start,
-                                                          window_end)
+                with self.recorder.timed("prefetch:pack", total=False) as s:
+                    packed = self._pack_host_states(window_start, window_end)
+                result["packed"] = (packed, s.seconds)
             except Exception as e:  # noqa: BLE001 — re-raised at the join
                 result["error"] = e
         thread = threading.Thread(target=work, daemon=True,
@@ -173,42 +182,55 @@ class Environment:
         if pending is not None:
             pending[2].join()
 
-    def build_device_states(self, window_start=None, window_end=None):
+    def build_device_states(self, window_start=None, window_end=None,
+                            category="readers"):
         """Per-reader device states for a time window (host packing, taken
         from the prefetch thread where it packed this window, then one copy
-        to the device), with the failure-quarantine policy."""
+        to the device), with the failure-quarantine policy.  The join, the
+        packing and the copy are spans ``<category>:join wait``, ``:pack``
+        and ``:copy``."""
+        timed, count = self.recorder.timed, self.recorder.count
         pending, self._prefetch = self._prefetch, None
         packed = None
         if pending is not None:
-            t = time.perf_counter()
-            pending[2].join()
-            self.join_wait_seconds += time.perf_counter() - t
+            with timed(f"{category}:join wait") as span:
+                pending[2].join()
+            self.join_wait_seconds += span.seconds
             if "error" in pending[3]:
                 raise pending[3]["error"]
             if pending[:2] == (window_start, window_end):
                 packed, seconds = pending[3]["packed"]
                 self.prefetched_pack_seconds += seconds
+                count("readers.windows_prefetched")
         if packed is None:
-            packed, seconds = self._pack_host_states(window_start, window_end)
+            with timed(f"{category}:pack") as span:
+                packed = self._pack_host_states(window_start, window_end)
+            seconds = span.seconds
+            count("readers.windows_packed_on_loop")
         self.pack_seconds += seconds
-        states = []
-        for (reader, served), host in zip(self._plan, packed):
-            if isinstance(host, Exception):
-                n = self.reader_fail_count.get(reader.name, 0) + 1
-                self.reader_fail_count[reader.name] = n
-                if n >= self.max_reader_fails:
-                    logger.warning(
-                        "Reader %s failed %d time(s) — discarding: %s",
-                        reader.name, n, host)
-                    self.discarded_readers[reader.name] = str(host)
-                host = None
-            # a domain-decomposed reader's table stays on the host: the
-            # run splits it into per-tile bands (parallel/tiled.py)
-            keep = ("packed",) if getattr(reader, "_dd_keep_host", False) \
-                else ()
-            states.append(None if host is None
-                          else device_state_from_numpy(host, self.device,
-                                                       keep))
+        with timed(f"{category}:copy"):
+            states = []
+            for (reader, served), host in zip(self._plan, packed):
+                if isinstance(host, Exception):
+                    n = self.reader_fail_count.get(reader.name, 0) + 1
+                    self.reader_fail_count[reader.name] = n
+                    if n >= self.max_reader_fails:
+                        logger.warning(
+                            "Reader %s failed %d time(s) — discarding: %s",
+                            reader.name, n, host)
+                        self.discarded_readers[reader.name] = str(host)
+                    host = None
+                if host is None:
+                    states.append(None)
+                    continue
+                # a domain-decomposed reader's table stays on the host:
+                # the run splits it into per-tile bands (parallel/tiled.py)
+                keep = ("packed",) if getattr(reader, "_dd_keep_host",
+                                              False) else ()
+                count("readers.h2d_bytes",
+                      host_nbytes(host, self.device, keep))
+                states.append(device_state_from_numpy(host, self.device,
+                                                      keep))
         return tuple(states)
 
     # ------------------------------------------------------ device sampling

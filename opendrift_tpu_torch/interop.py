@@ -169,3 +169,35 @@ def device_state_to_numpy(state):
     return {k: (table_to_numpy(v) if torch.is_tensor(v) or isinstance(
                     v, (CompensatedTable, SplitTable)) else v)
             for k, v in dict(state).items()}
+
+
+def host_nbytes(arrays, device, keep_host=()):
+    """The bytes :func:`device_state_from_numpy` hands to ``device`` for
+    the same arguments: host arrays and tables, tensors on another device;
+    host keys, ``keep_host`` keys and other entries count 0."""
+    if isinstance(arrays, (tuple, list)):
+        return sum(host_nbytes(a, device, keep_host) for a in arrays)
+    device = torch.device(device)
+
+    def nbytes(v):
+        if torch.is_tensor(v):
+            there = v.device.type == device.type and device.index in (
+                None, v.device.index)
+            return 0 if there else v.numel() * v.element_size()
+        if isinstance(v, (np.ndarray, np.generic)) or hasattr(
+                v, "__array__"):
+            return np.asarray(v).nbytes
+        return 0
+    total = 0
+    for k, v in dict(arrays).items():
+        if k in keep_host or k in HOST_KEYS:
+            continue
+        if isinstance(v, CompensatedTable):
+            total += nbytes(v.data) + nbytes(v.scale)
+        elif isinstance(v, SplitTable):
+            total += nbytes(v.data)
+        elif isinstance(v, dict) and "kind" in v:
+            total += nbytes(v["data"]) + nbytes(v.get("scale"))
+        else:
+            total += nbytes(v)
+    return total

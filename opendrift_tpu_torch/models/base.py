@@ -121,6 +121,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         if loglevel is not None:
             logging.basicConfig(level=loglevel)
         self.env = Environment(self.required_variables, device=self.device)
+        self.env.recorder = self.recorder   # its spans and counters
         self._add_base_config()
         self._add_seed_configs()
         self._add_environment_configs()
@@ -768,8 +769,38 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         ``export_buffer_length`` is accepted and unused, as in the JAX
         package: the flush length is ``export:buffer_length``.  The host's
         peak RSS in MB is sampled into ``self.memory_usage`` once an output
-        interval; ``general:profile_dir`` traces the main loop with
-        ``torch.profiler``."""
+        interval; ``general:profile_dir`` traces the whole run with
+        ``torch.profiler``.  Each stage of the run is a span (``timer.py``;
+        ``self.spans``, under ``self.run_id``), its seconds in
+        ``self.timers``:
+
+        * ``preparing main loop``: ``:initial state``, ``:readers``,
+          ``:to device``, ``:advance`` (the step's set-up);
+        * ``main loop``: ``:readers`` each window (``:join wait``,
+          ``:pack`` on this thread, ``:copy``), ``:advance`` (an interval's
+          launches, and the final snapshot's), ``:to host`` (the frame's
+          copy, which waits for the card), ``:export``;
+        * ``postprocessing``: ``:assemble``, ``:export``;
+
+        and ``prefetch:pack`` on the prefetch thread, outside the timers.
+        The counters (``self.counters``): ``readers.h2d_bytes``,
+        ``run.d2h_bytes``, ``readers.windows_prefetched``,
+        ``readers.windows_packed_on_loop``."""
+        self.next_run()
+        profile_dir = self.get_config("general:profile_dir")
+        profiler = self._start_profiler(profile_dir) if profile_dir else None
+        try:
+            return self._run(time_step, steps, duration, end_time,
+                             time_step_output, outfile, export_variables)
+        finally:
+            if profiler is not None:
+                profiler.stop()
+                logger.info("torch.profiler trace written to %s",
+                            profile_dir)
+
+    def _run(self, time_step, steps, duration, end_time, time_step_output,
+             outfile, export_variables):
+        """The body of :meth:`run`, inside its profiler."""
         self.timer_start("preparing main loop")
         self.mode = Mode.Run
         if time_step is None:
@@ -823,8 +854,6 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
 
         self.timer_end("preparing main loop")
         self.timer_start("main loop")
-        profile_dir = self.get_config("general:profile_dir")
-        profiler = self._start_profiler(profile_dir) if profile_dir else None
         self.memory_usage = []
         frames, frame_times = [], []
         writer = None
@@ -849,6 +878,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         elif outfile is not None and buffer_length > 0:
             from ..export.io_netcdf import IncrementalWriter
             writer = IncrementalWriter(outfile, n_real)
+        exporting = sharded_out or writer is not None
 
         def flush(force=False):
             nonlocal flushed, writer
@@ -870,28 +900,35 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         from ..parallel.mesh import gather_tiles
 
         def host(snap):
-            if sharded_out:
-                # O(local): this process's slots only
-                return multihost.local_rows(snap, (dd or sharding).mesh)[0]
-            if dd is not None:
-                export = self.export_variables
-                return dd.reorder_frame(
-                    gather_tiles(snap), n_real,
-                    keep_id=export is None or "ID" in export)
-            if sharding is not None:
-                return gather_tiles(snap)
-            return {n: v.cpu().numpy() for n, v in snap.items()}
+            with self.timed("main loop:to host"):
+                if sharded_out:
+                    # O(local): this process's slots only
+                    frame = multihost.local_rows(
+                        snap, (dd or sharding).mesh)[0]
+                elif dd is not None:
+                    export = self.export_variables
+                    frame = dd.reorder_frame(
+                        gather_tiles(snap), n_real,
+                        keep_id=export is None or "ID" in export)
+                elif sharding is not None:
+                    frame = gather_tiles(snap)
+                else:
+                    frame = {n: v.cpu().numpy() for n, v in snap.items()}
+            self.count("run.d2h_bytes", sum(int(getattr(v, "nbytes", 0))
+                                            for v in frame.values()))
+            return frame
 
         def device_states(k):
             # host packing and the copy to the device, timed apart from
             # the steps (the copy returns once the tables are on the card);
             # a decomposed grid is split into its tiles' bands here, before
             # the next window's prefetch starts
-            self.timer_start("main loop:readers")
-            states = self.env.build_device_states(*window(k))
-            if dd is not None:
-                states = dd.retile(states)
-            self.timer_end("main loop:readers")
+            with self.timed("main loop:readers"):
+                states = self.env.build_device_states(
+                    *window(k), category="main loop:readers")
+                if dd is not None:
+                    with self.timed("main loop:readers:copy"):
+                        states = dd.retile(states)
             return states
         try:
             for k in range(n_intervals):
@@ -906,16 +943,21 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                     # it.  It packs on the host only: the copy to the card
                     # is made by device_states(k + 1), on this thread.
                     self.env.prefetch_device_states(*window(k + 1))
-                state, snap = advance(state, dev_states, t_rel,
-                                      rng.fold_in(base_key, k))
+                with self.timed("main loop:advance"):
+                    state, snap = advance(state, dev_states, t_rel,
+                                          rng.fold_in(base_key, k))
                 frames.append(host(snap))
                 frame_times.append(self.start_time
                                    + timedelta(seconds=float(t_rel)))
                 self._sample_memory()
-                flush()
+                if exporting:
+                    with self.timed("main loop:export"):
+                        flush()
             t_rel = np.float32(n_intervals * K * dt)
             dev_states = device_states(n_intervals - 1)
-            frames.append(host(final_snap(state, dev_states, t_rel)))
+            with self.timed("main loop:advance"):
+                snap = final_snap(state, dev_states, t_rel)
+            frames.append(host(snap))
             frame_times.append(self.start_time
                                + timedelta(seconds=float(t_rel)))
             if dd is not None or sharding is not None:
@@ -934,25 +976,22 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                 self.mode = Mode.Result
             self.timer_end("main loop")
             raise
-        finally:
-            if profiler is not None:
-                profiler.stop()
-        if profiler is not None:
-            logger.info("torch.profiler trace written to %s", profile_dir)
         self.timer_end("main loop")
 
         self.timer_start("postprocessing")
         # sharded output: self.result holds this process's own slots (with
         # an ID variable); the global file comes from concat_shards
-        self.result = self._assemble_result(frames, frame_times,
-                                            trim=not sharded_out)
+        with self.timed("postprocessing:assemble"):
+            self.result = self._assemble_result(frames, frame_times,
+                                                trim=not sharded_out)
         if outfile is not None:
-            if writer is not None:
-                flush(force=True)
-                writer.finalize(self.result)
-            elif not sharded_out:
-                from ..export.io_netcdf import write_result
-                write_result(self.result, outfile)
+            with self.timed("postprocessing:export"):
+                if writer is not None:
+                    flush(force=True)
+                    writer.finalize(self.result)
+                elif not sharded_out:
+                    from ..export.io_netcdf import write_result
+                    write_result(self.result, outfile)
         self.timer_end("postprocessing")
         self.timer_end("total time")
         self.mode = Mode.Result
@@ -961,16 +1000,24 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
 
     def _start_profiler(self, profile_dir):
         """A started ``torch.profiler`` that writes its trace into
-        ``profile_dir`` when stopped (CUDA kernels too on a card)."""
+        ``profile_dir`` when stopped (CUDA kernels too on a card, and every
+        thread where the installed torch can)."""
         from torch.profiler import ProfilerActivity, profile, \
             tensorboard_trace_handler
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(profile_dir, exist_ok=True)
+        try:
+            # every thread's spans, the prefetch thread's too
+            from torch._C._profiler import _ExperimentalConfig
+            extra = dict(experimental_config=_ExperimentalConfig(
+                profile_all_threads=True))
+        except (ImportError, TypeError):
+            extra = {}
         profiler = profile(activities=activities,
                            on_trace_ready=tensorboard_trace_handler(
-                               profile_dir))
+                               profile_dir), **extra)
         profiler.start()
         return profiler
 
@@ -1046,18 +1093,23 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
     def prepare_run(self, dt, K, export_variables=None, total_steps=None):
         """Finalise the environment, build the initial device state and the
         (advance, final_snapshot) callables.  Split out of ``run`` so
-        benchmarks drive the loop directly."""
+        benchmarks drive the loop directly.  Its stages are the spans
+        ``preparing main loop:initial state``, ``:readers``, ``:to device``
+        and ``:advance``."""
         if getattr(self, "start_time", None) is None:
             all_times = np.concatenate([s["time"] for s in self._seedings])
             self.start_time = all_times.min() if dt > 0 else all_times.max()
             self.time_step = timedelta(seconds=dt)
             self.time_step_output = timedelta(seconds=K * dt)
+        self.timer_start("preparing main loop:initial state")
         if self.get_config("seed:ocean_only"):
             for s in self._seedings:
                 s["lon"], s["lat"] = self.closest_ocean_points(
                     s["lon"], s["lat"])
         state_np = self._build_initial_state(dt)
+        self.timer_end("preparing main loop:initial state")
 
+        self.timer_start("preparing main loop:readers")
         constant_overrides = {}
         fallback_overrides = {}
         for var in self.required_variables:
@@ -1120,7 +1172,8 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         # basemodel/__init__.py:1168-1210)
         if self.get_config("seed:seafloor", default=False):
             dev0 = self.env.build_device_states(
-                self.start_time, self.start_time + timedelta(seconds=dt))
+                self.start_time, self.start_time + timedelta(seconds=dt),
+                category="preparing main loop:readers")
             envs0, _ = self.env.get_environment(
                 dev0, ["sea_floor_depth_below_sea_level"], np.float32(0.0),
                 *(torch.as_tensor(state_np[k], device=self.device)
@@ -1128,7 +1181,9 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             depth0 = envs0["sea_floor_depth_below_sea_level"].cpu().numpy()
             state_np["z"] = (-depth0 + 0.01).astype(np.float32)
             state_np["prev_z"] = state_np["z"].copy()
+        self.timer_end("preparing main loop:readers")
 
+        self.timer_start("preparing main loop:to device")
         # ---- domain decomposition: tile the primary forcing grid over the
         # mesh and re-layout elements into per-tile buffers (the slot of
         # reference basereader/structured.py:121-123 block buffers at
@@ -1153,8 +1208,6 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             from ..parallel.mesh import ShardedRun
             self._sharding = ShardedRun(mesh, self._n_padded_elements,
                                         self._n_real_elements)
-        self.export_variables = export_variables
-        advance, final_snap = self._make_advance(K, dt)
         if self._dd is not None or self._sharding is not None:
             # the binned per-tile buffers, or the padded element axis,
             # split evenly: each process keeps its own tiles
@@ -1165,6 +1218,11 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                         self._n_padded_elements, mesh.n_tiles)
         else:
             state = element_state_from_numpy(state_np, self.device)
+        self.timer_end("preparing main loop:to device")
+        self.export_variables = export_variables
+        self.timer_start("preparing main loop:advance")
+        advance, final_snap = self._make_advance(K, dt)
+        self.timer_end("preparing main loop:advance")
         if self.get_config("general:rng") == "rbg":
             base_key = rng.rbg_key(self.rng_seed)
         else:

@@ -343,7 +343,7 @@ class DDContext:
         X columns of the Y-extended band between (ty, tx±1), which carry
         the corners; the domain edges replicate their own edge cells."""
         t_start = self._event()
-        with torch.profiler.record_function("dd.halo_exchange"):
+        with self.sim.timed("dd.halo_exchange"):
             out = self._extend(tiled)
         self._record("halo", t_start)
         return out
@@ -414,7 +414,7 @@ class DDContext:
         t_start = self._event()
         datas = [dict(s.data) for s in states]
         shipped = 0
-        with torch.profiler.record_function("dd.migrate"):
+        with self.sim.timed("dd.migrate"):
             if self.n_ty > 1:
                 datas, k = self._migrate_axis(datas, "y")
                 shipped += k

@@ -468,8 +468,9 @@ def test_memory_usage_one_entry_per_output_interval(output_steps):
 
 def test_profile_dir_writes_a_trace(tmp_path):
     """tests/test_engine_features.py:282-303: ``general:profile_dir``
-    writes a torch.profiler trace of the main loop (a Chrome trace JSON
-    naming the run's operations)."""
+    writes a torch.profiler trace of the whole run (a Chrome trace JSON
+    naming the run's operations, its spans from the start of ``run()`` on
+    and the prefetch thread's)."""
     import json
     M, A, kw = _pkg("torch")
     o = M.OceanDrift(loglevel=50, **kw)
@@ -485,6 +486,7 @@ def test_profile_dir_writes_a_trace(tmp_path):
     trace = json.load(open(tmp_path / "trace" / found[0]))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    assert {"preparing main loop", "prefetch:pack"} <= names
     assert not torch.autograd.profiler._is_profiler_enabled
 
 
