@@ -12,7 +12,8 @@ printing its own line:
    started together); then the forcing files of the file paths (4a),
    written into a temporary directory removed at the end;
 2. kernels: each hand-written kernel (the windspeed, profile and oil
-   mixing kernels, and the two row-gather kernels) against its plain
+   mixing kernels, the two row-gather kernels and the window assembly
+   kernel) against its plain
    PyTorch version on the card, at the main path's shapes (2M elements,
    15 substeps; 2M row indices), with its time (``ms``: one wrapper call
    at a time between CUDA events; ``device_ms``: calls queued back to back
@@ -36,7 +37,13 @@ printing its own line:
    version at 2M words, at the main path's (2, 2M) draw, at a (2, 2M)
    shard of a longer axis, with a key whose counter carries across both
    64-bit halves and at ragged shapes, timed at (2M,) and (2, 2M) beside
-   the threefry ``rng.bits`` of the same shapes;
+   the threefry ``rng.bits`` of the same shapes; the window assembly
+   kernel (``pack_window``) byte-equal to ``assemble_rows_plain`` in every
+   case of ``opendrift_tpu_torch/tools/pack_ab.py`` (the benchmark
+   forecast's NorKyst tables, 16 x 300 x 260 in 'xy' with the u/v
+   companion, and AROME wind table; 'xyz', float16, two members, an odd
+   column count), each with its ``ms``, ``device_ms``, plain ``ms`` and
+   bytes bound;
 3. main path: ``OceanDrift(device="cuda")`` on a synthetic 3D z-level
    ``ArrayReader``, 2M elements, RK4 + Visser mixing (windspeed_Large1994,
    through the windspeed kernel) after one untimed interval that takes the
@@ -44,7 +51,9 @@ printing its own line:
    shorter run with the 'constant'
    diffusivity (through the profile kernel); each run is checked to have
    gone through its kernel, and one interval of the first is profiled
-   (kernels by device time, the device's busy share);
+   (kernels by device time, the device's busy share); the first's
+   ``pack_window`` launches are counted, one a window a structured reader
+   assembles on the card;
 3a. rbg path: the first run again with ``general:rng='rbg'``, 2M elements,
    three intervals: its diffusion normals through ``philox_bits`` (the
    launches a step are printed), its mixing seed the rbg scalar draw;
@@ -73,7 +82,8 @@ printing its own line:
    ``roms_path`` on a Nordic-4km-like ROMS file (a 200 x 160 curvilinear
    C-grid, 32 sigma levels), 'environment' mixing on its AKs profiles
    through the profile kernel.  Checked: the int16 decode's route is
-   'native', the path's kernel once a step and no other, no NaN where an
+   'native', the path's kernel once a step and no other, ``pack_window``
+   once a window assembled on the card, no NaN where an
    element is valid; printed: reader build and run seconds, the steps-alone
    rate and reader share, the stranded share, the seconds of a window's
    decode (native against numpy) and fill, and the milliseconds of one
@@ -873,7 +883,7 @@ def profile_interval(o, top=10, phase="profile", dt=900.0):
 
 def main_path():
     import torch
-    from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.ops import mixing, pack
     n = 2_000_000
     kernels = (mixing.visser_mixing, mixing.visser_mixing_profile)
     launches = {}
@@ -885,10 +895,15 @@ def main_path():
                      - o.timers.get("main loop:readers", 0.0))
     del o
     # the windspeed kernel's path: 3 output intervals of K = 10 steps
-    for k in kernels:
+    for k in kernels + (pack.pack_window,):
         k.launches = 0
     o, secs = run_main_path(n, intervals=3, model="windspeed_Large1994")
     launches["visser_mixing"] = mixing.visser_mixing.launches
+    launches["pack_window"] = pack.pack_window.launches
+    windows = o.counters.get("readers.windows_assembled_on_device", 0)
+    if launches["pack_window"] != windows:
+        raise AssertionError(f"{launches['pack_window']} pack_window "
+                             f"launches for {windows} windows")
     active = check_result(o, n, 4)
     sampler = o.env.readers["ocean"]._sampler.pair_mode
     wind_tier = o.env.readers["wind"]._sampler.pair_mode
@@ -905,6 +920,9 @@ def main_path():
     log("main_path", model="windspeed_Large1994", ocean_tier=sampler,
         wind_tier=wind_tier, active_share=active,
         launches=launches["visser_mixing"],
+        pack_window_launches=launches["pack_window"],
+        frames_uploaded=o.counters.get("readers.frames_uploaded", 0),
+        h2d_bytes=o.counters.get("readers.h2d_bytes", 0),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **stats)
     # the final positions' spread, for the tiled run of the same setting
     stats["final"] = final_moments(o)
@@ -1033,6 +1051,42 @@ def check_philox(device, n=PHILOX_N, timed=True):
            "threefry_device_ms": main["threefry_device_ms"],
            "shape": [2, n], "words_2m": times["words"],
            "bytes": main["bytes"], "ops": main["ops"]}
+    log("kernel_time", **row)
+    return row
+
+
+PACK_REPLACES = ("none: the JAX package packs each window on the host "
+                 "(opendrift_tpu/fields/grid.py _pack_member)")
+
+
+def check_pack_window(device, cases=None, timed=True):
+    """The window assembly kernel (``pack_window``) against
+    ``assemble_rows_plain`` on ``device``, byte for byte, in each of
+    ``cases`` (by default every case of ``tools/pack_ab.py``; on the card
+    each timed by the tool).  With ``timed`` returns the kernel's row of
+    the result line: the ``norkyst`` case, the main path's tables."""
+    import torch
+    from opendrift_tpu_torch.tools import pack_ab
+    lines = {}
+    for case in cases or list(pack_ab.CASES):
+        line = pack_ab.run_case(case, torch.device(device))
+        log("kernel_check", kernel="pack_window", **line)
+        if not line["equal"]:
+            raise AssertionError(f"pack_window {case} differs from its "
+                                 "plain version")
+        lines[case] = line
+    if not timed:
+        return None
+    main = lines["norkyst"]
+    row = {"name": "pack_window", "route": "cuda",
+           "source": "opendrift_tpu_torch/csrc/pack_window.cu",
+           "replaces": PACK_REPLACES, "launches": 0, "max_abs_err": 0.0,
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": "bytes",
+           "library_ms": None, "device_ms": main["device_ms"],
+           "write_bound_ms": main["write_bound_ms"],
+           "roofline": main["roofline"], "shapes": main["shapes"],
+           "bytes": main["table_bytes"] + main["frame_bytes"], "ops": 0}
     log("kernel_time", **row)
     return row
 
@@ -2134,7 +2188,7 @@ def file_path(name, simulation, kernel, files, n=2_000_000, intervals=3,
     Returns (its launches, the run's numbers)."""
     import torch
     from opendrift_tpu_torch.fields.grid import StructuredGridReader
-    from opendrift_tpu_torch.ops import mixing
+    from opendrift_tpu_torch.ops import mixing, pack
     from opendrift_tpu_torch.utils import native
     route = native.decode_route()
     log(f"{name}_decode_route", route=route)
@@ -2153,7 +2207,7 @@ def file_path(name, simulation, kernel, files, n=2_000_000, intervals=3,
     t = time.perf_counter()
     o, build_s = simulation("cuda", n, files)
     parts["setup_s"] = time.perf_counter() - t
-    for k in kernels:
+    for k in kernels + (pack.pack_window,):
         k.launches = 0
     calls = []
     real = StructuredGridReader._grid_indices
@@ -2174,8 +2228,12 @@ def file_path(name, simulation, kernel, files, n=2_000_000, intervals=3,
     for k in kernels:
         if k is not kernel:
             assert k.launches == 0, f"{name} launched {k.__name__}"
+    windows = o.counters.get("readers.windows_assembled_on_device", 0)
+    assert pack.pack_window.launches == windows, \
+        f"{pack.pack_window.launches} pack_window launches, {windows} windows"
     checks = check_sampler_result(o, n, intervals + 1)
     stats = run_stats(o, n, steps, secs)
+    stats["pack_window_launches"] = pack.pack_window.launches
     stats["particle_steps_per_s_steps_only_untimed_interval"] = first
     stats["reader_build_s"] = build_s
     readers = [r for r, _ in o.env._plan]
@@ -3801,16 +3859,17 @@ def main():
               file=sys.stderr)
         return 1
     from concurrent.futures import ThreadPoolExecutor
-    from opendrift_tpu_torch.ops import gather, mixing, philox
+    from opendrift_tpu_torch.ops import gather, mixing, pack, philox
 
     kind = torch.cuda.get_device_name(0)
     power = power_line()
     t = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         for built in [pool.submit(mixing.load_library),
                       pool.submit(gather.load_library),
-                      pool.submit(philox.load_library)]:
+                      pool.submit(philox.load_library),
+                      pool.submit(pack.load_library)]:
             built.result()
 
     def ptxas(report):
@@ -3823,7 +3882,8 @@ def main():
         gather_nvcc_flags=gather.NVCC_FLAGS, ptxas=ptxas(mixing.build_log),
         gather_ptxas=ptxas(gather.build_log),
         philox_nvcc_flags=philox.NVCC_FLAGS,
-        philox_ptxas=ptxas(philox.build_log))
+        philox_ptxas=ptxas(philox.build_log),
+        pack_nvcc_flags=pack.NVCC_FLAGS, pack_ptxas=ptxas(pack.build_log))
 
     seconds = {"build": time.perf_counter() - t}
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3863,6 +3923,8 @@ def run_phases(kind, power, t, seconds, workdir):
     timed("sass_phase", sass_phase, rows)
     rows.update(timed("check_gather_kernels", check_gather_kernels, "cuda"))
     rows["philox_bits"] = timed("check_philox", check_philox, "cuda")
+    rows["pack_window"] = timed("check_pack_window", check_pack_window,
+                                "cuda")
     launches, stats = timed("main_path", main_path)
     launches["philox_bits"], _ = timed("rbg_path", rbg_path, stats)
     coast_launches, coast_stats = timed("coast_path", coast_path)
@@ -3921,6 +3983,10 @@ def run_phases(kind, power, t, seconds, workdir):
     for name in ("gather_rows_async", "gather_rows_smem"):
         rows[name]["paths"] = {"gather_ab": launches[name]}
     rows["philox_bits"]["paths"] = {"rbg_main": launches["philox_bits"]}
+    rows["pack_window"]["paths"] = {
+        "main": launches["pack_window"],
+        "netcdf": netcdf_stats["pack_window_launches"],
+        "roms": roms_stats["pack_window_launches"]}
     for name, fn in (("prefetch_ab", prefetch_ab),
                      ("tiers_and_storages", tiers_and_storages),
                      ("generic_loop", generic_loop_phase),

@@ -6,15 +6,19 @@ reader chain is a sequence of sampler calls merged with ``torch.where``
 on per-variable missing masks, ended by scalar fallbacks.  Host-side:
 registry and priority bookkeeping, failure quarantine
 (environment.py:656-674), and the per-window device states, which
-readers build as host arrays and this class copies to the device.  The
-next window's host packing can run on a worker thread beside the steps
-(``prefetch_device_states``); the copy to the device is always made by the
-thread that takes the states (``build_device_states``), on its stream.
+readers build on the host and this class takes to the device: host arrays
+are copied, a structured reader's window (``ops/pack.py``) uploads the
+frames the device does not hold yet and is assembled there.  The next
+window's host work (reading and decoding frames, packing) can run on a
+worker thread beside the steps (``prefetch_device_states``); the copy to
+the device and the assembly are always made by the thread that takes the
+states (``build_device_states``), on its stream.
 Each of these is a span of ``recorder`` (the simulation's
 :class:`~opendrift_tpu_torch.timer.Recorder`): the join, the packing and
 the copy under the caller's category, the worker's packing as
-``prefetch:pack`` on its own thread; the bytes copied and the windows
-packed on either thread are its counters.
+``prefetch:pack`` on its own thread; the bytes copied, the windows packed
+on either thread, the frames uploaded and the windows assembled on the
+device are its counters.
 """
 
 import logging
@@ -26,7 +30,7 @@ import torch
 
 from ..errors import VariableNotCoveredError
 from ..interop import device_state_from_numpy, host_nbytes, \
-    resolve_device
+    pack_windows, resolve_device
 from .. import rng
 from ..timer import Recorder
 from .analytic import ConstantReader
@@ -185,10 +189,11 @@ class Environment:
     def build_device_states(self, window_start=None, window_end=None,
                             category="readers"):
         """Per-reader device states for a time window (host packing, taken
-        from the prefetch thread where it packed this window, then one copy
-        to the device), with the failure-quarantine policy.  The join, the
-        packing and the copy are spans ``<category>:join wait``, ``:pack``
-        and ``:copy``."""
+        from the prefetch thread where it packed this window, then the copy
+        to the device: the new frames of a structured reader's window and
+        their assembly there, other host arrays whole), with the
+        failure-quarantine policy.  The join, the packing and the copy are
+        spans ``<category>:join wait``, ``:pack`` and ``:copy``."""
         timed, count = self.recorder.timed, self.recorder.count
         pending, self._prefetch = self._prefetch, None
         packed = None
@@ -227,10 +232,17 @@ class Environment:
                 # the run splits it into per-tile bands (parallel/tiled.py)
                 keep = ("packed",) if getattr(reader, "_dd_keep_host",
                                               False) else ()
-                count("readers.h2d_bytes",
-                      host_nbytes(host, self.device, keep))
                 states.append(device_state_from_numpy(host, self.device,
                                                       keep))
+                # a structured reader's window went up as its new frames
+                # and was assembled on the device
+                nbytes = host_nbytes(host, self.device, keep)
+                for window in pack_windows(host):
+                    frames, sent = window.sent
+                    count("readers.frames_uploaded", frames)
+                    count("readers.windows_assembled_on_device")
+                    nbytes += sent
+                count("readers.h2d_bytes", nbytes)
         return tuple(states)
 
     # ------------------------------------------------------ device sampling

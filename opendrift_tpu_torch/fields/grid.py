@@ -4,10 +4,15 @@ Port of ``opendrift_tpu/fields/grid.py`` (reference: opendrift/readers/
 basereader/structured.py:15-628, interpolation/structured.py:12-186):
 
 * Host side: a subclass reads raw frames (``_read_frame``); the base
-  scrubs, NaN-fills, subsets to the simulation extent with a speed-derived
-  halo, and packs a fixed-shape window of frames into the row layout of
-  ``ops/interp.PackedSampler`` — the same tier choice, column layout and
-  neighbour packing as the JAX package, so both build equal tables.
+  scrubs, NaN-fills and subsets them to the simulation extent with a
+  speed-derived halo, and hands a fixed-shape window of frames over in the
+  row layout of ``ops/interp.PackedSampler`` — the same tier choice,
+  column layout and neighbour packing as the JAX package, so both build
+  equal tables.  The tables are assembled where they go
+  (``ops/pack.py``): on the card by a kernel, from the frames the card
+  holds already and the window's new ones, so a window sends only its new
+  frames; the storages a consumer needs built on the host (compensated,
+  split, a decomposed run's) are assembled on the host.
 * Device side: ``sample`` projects positions to fractional grid indices
   and gathers/blends rows; ``corner_block`` gathers a cell's stencil once
   for ``sample_from_block`` / ``uv_from_block`` to evaluate at displaced
@@ -42,6 +47,7 @@ from .base import BaseReader, STANDARD_NAMES
 from ..ops.interp import (fill_invalid, fill_towards_seafloor, PackedSampler,
                           CompensatedTable, GATHER_FAST_MAX_ROWS,
                           maybe_split_table, take_rows)
+from ..ops.pack import PackWindow, ResidentFrames, WindowTable
 from ..utils.xp import tnp
 
 logger = logging.getLogger(__name__)
@@ -54,6 +60,7 @@ STATIC_VARIABLES = {"land_binary_mask", "sea_floor_depth_below_sea_level"}
 # JAX package; the same number keeps the two packages' tables equal)
 ROW_BUDGET_BYTES = 256e6
 UV = ("x_sea_water_velocity", "y_sea_water_velocity")
+TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16}
 
 
 def choose_pair_mode(Z, ny, nx, C, want_xy):
@@ -288,9 +295,14 @@ class StructuredGridReader(BaseReader):
         return arr
 
     def device_state(self, window_start=None, window_end=None):
-        """Pack the window's frames into the row layout: host arrays
-        'packed' (Z*y*x, C*k), the narrow u/v companion 'packed_uv',
-        'times' (float32 seconds from the run epoch) and 'depths'."""
+        """The window's host state: 'packed' (Z*y*x, C*k), with the 'xy' and
+        'xyz' pairs the narrow u/v companion 'packed_uv', 'times' (float32
+        seconds from the run epoch) and 'depths'.  The tables are
+        :class:`~opendrift_tpu_torch.ops.pack.WindowTable`: the window's
+        decoded frames and their layout, assembled on the device they go to
+        from the frames it holds already and the new ones.  The storages
+        built on the host (compensated and split tables, a decomposed
+        run's) come as host tables."""
         tidx = self._frame_indices(window_start, window_end)
         F = len(tidx)
         ny = self._iy.stop - self._iy.start
@@ -329,8 +341,9 @@ class StructuredGridReader(BaseReader):
                        and getattr(self, "pair_hint", None) == "xy"))
         pair_mode = choose_pair_mode(Z, ny, nx, C, want_xy)
         sampler = PackedSampler(Z, ny, nx, F, col_of, pair_mode)
-        if getattr(self, "_dd_keep_host", False) or \
-                getattr(self, "_dd_defer_pack", False):
+        dd_host = getattr(self, "_dd_keep_host", False)
+        dd_defer = getattr(self, "_dd_defer_pack", False)
+        if dd_host or dd_defer:
             # domain decomposition: the steps sample with the tile's
             # geometry, which the run sets from this one (``retile``); a
             # prefetching thread must not overwrite it mid-interval
@@ -338,84 +351,49 @@ class StructuredGridReader(BaseReader):
         else:
             self._sampler = sampler
         M = getattr(self, "ensemble_size", 1)
+        k = PackedSampler.PAIR_FACTOR[pair_mode]
         self._pack_plan = {
-            "tidx": tidx, "col_of": col_of, "Z": Z, "C": C,
-            "Cf": C * PackedSampler.PAIR_FACTOR[pair_mode],
+            "tidx": tidx, "col_of": col_of, "Z": Z, "C": C, "Cf": C * k,
             "pair_mode": pair_mode, "M": M, "ny": ny, "nx": nx}
         out = {}
-        if C > 0 and getattr(self, "_dd_defer_pack", False):
+        if C > 0 and dd_defer:
             # domain decomposition with per-process reads: the full-grid
             # table is never built; the run reads each process's bands
             # through packed_rows()
             out["packed_deferred"] = True
-        elif C > 0 and getattr(self, "_dd_keep_host", False):
-            # domain decomposition: the host table is split into per-tile
-            # core bands by the run, so only the bands reach a device
-            # (as in the JAX package, no compensated storage and no u/v
-            # companion for a tile)
-            blocks = [self._pack_member(m, tidx, col_of, Z, C, pair_mode)
-                      .reshape(Z * ny * nx, -1) for m in range(M)]
-            packed_all = np.concatenate(blocks, axis=0) if M > 1 \
-                else blocks[0]
-            dtype = getattr(self, "packed_dtype", None) or "float32"
-            if dtype in ("float16x2", "f16x2"):
-                dtype = "float32"
-            out["packed"] = packed_all.astype(np.dtype(dtype))
         elif C > 0:
-            # ensemble forcing: member m's rows start at m * Z*ny*nx
-            blocks = [self._pack_member(m, tidx, col_of, Z, C, pair_mode)
-                      .reshape(Z * ny * nx, -1)
-                      for m in range(getattr(self, "ensemble_size", 1))]
-            packed_all = np.concatenate(blocks, axis=0) if len(blocks) > 1 \
-                else blocks[0]
-            dtype = getattr(self, "packed_dtype", None)
-            # a reader whose sampling is approximate anyway may opt into
-            # compensated storage for large tables; an explicit
-            # packed_dtype always wins
-            auto_comp = (dtype is None
-                         and getattr(self, "packed_auto_compensate", False))
-            dtype = dtype or "float32"
-            compensated = dtype in ("float16x2", "f16x2")
-            if compensated:
-                dtype = "float32"
-            if dtype not in ("float32", "float16"):
-                raise ValueError(
-                    f"{self.name}: packed_dtype {dtype!r} is not one of "
-                    "'float32', 'float16', 'float16x2'")
-            rows = packed_all.shape[0]
-            if pair_mode == "xyz":
-                auto_comp = False      # the JAX package's rule, kept
-            if auto_comp and rows >= GATHER_FAST_MAX_ROWS:
-                compensated = True
-                logger.info(
-                    "Packed table of reader %s has %d rows, at or beyond "
-                    "the JAX package's threshold of 2^15; using compensated "
-                    "float16-pair storage (~2^-21 relative error; set "
-                    "reader.packed_dtype='float32' to force exact rows).",
-                    self.name, rows)
-            if compensated:
-                out["packed"] = CompensatedTable.from_array(packed_all)
+            dtype, compensated = self._storage(M * Z * ny * nx, pair_mode,
+                                               dd_host)
+            # the narrow u/v companion for the RK stage refetches: the same
+            # stencil layout, only the u/v frame columns (none for a tile)
+            uv = (not dd_host and pair_mode in ("xy", "xyz")
+                  and all(v in col_of for v in UV))
+            frames, tables = self._window_sources(
+                tidx, Z, M, uv, self._load_frame)
+            window = PackWindow(
+                self.__dict__.setdefault("_resident", ResidentFrames()),
+                frames, tables, Z, ny, nx, k, TORCH_DTYPES[dtype])
+            split = os.environ.get("OPENDRIFT_SPLIT_TABLE")
+            split = split if split in ("u16", "u8") else None
+            if dd_host:
+                # the run splits the host table into per-tile core bands,
+                # so only the bands reach a device (as in the JAX package,
+                # no compensated storage and no u/v companion for a tile)
+                out["packed"] = window.host_table(0)
+            elif compensated:
+                out["packed"] = CompensatedTable.from_array(
+                    window.host_table(0))
+            elif split:
+                out["packed"] = maybe_split_table(window.host_table(0),
+                                                  force=split)
             else:
-                arr = packed_all.astype(np.dtype(dtype), copy=False)
-                split = os.environ.get("OPENDRIFT_SPLIT_TABLE")
-                if split in ("u16", "u8"):
-                    arr = maybe_split_table(arr, force=split)
-                out["packed"] = arr
-            if pair_mode in ("xy", "xyz") and all(v in col_of for v in UV):
-                # narrow u/v companion for the RK stage refetches: the
-                # same stencil layout, only the u/v frame columns.  Beside
-                # a compensated table it stays float32, as in the JAX
-                # package (ROADMAP C records the decision)
-                uv_sub = []
-                for v in UV:
-                    c0 = col_of[v][0]
-                    uv_sub.extend(range(c0, c0 + F))
-                k = PackedSampler.PAIR_FACTOR[pair_mode]
-                idx = np.concatenate([np.asarray(uv_sub) + b * C
-                                      for b in range(k)])
-                out["packed_uv"] = np.ascontiguousarray(
-                    packed_all[:, idx],
-                    dtype=np.float32 if compensated else np.dtype(dtype))
+                out["packed"] = WindowTable(window, 0)
+            if uv:
+                # beside a compensated table the companion stays float32,
+                # as in the JAX package (ROADMAP C records the decision)
+                out["packed_uv"] = (window.host_table(1)
+                                    if compensated or split
+                                    else WindowTable(window, 1))
                 self._sampler_uv = PackedSampler(
                     Z, ny, nx, F, {UV[0]: (0, "t"), UV[1]: (F, "t")},
                     pair_mode)
@@ -430,75 +408,85 @@ class StructuredGridReader(BaseReader):
             out["depths"] = np.zeros((1,), dtype=np.float32)
         return out
 
-    def _pack_member(self, m, tidx, col_of, Z, C, pair_mode, rows=None):
-        """Ensemble member ``m``'s window in the row layout:
-        (Z, nrows, nx, C * k).  With ``rows=(r0, r1)`` only that band is
-        read from the source (a per-process read); the y-neighbour
-        columns take one context row, so the band equals the full-grid
-        packing's."""
-        nx = self._ix.stop - self._ix.start
-        if rows is None:
-            r0, r1 = 0, self._iy.stop - self._iy.start
-            pad_y = 0
+    def _storage(self, rows, pair_mode, dd_host):
+        """The table's element type ('float32' or 'float16') and whether it
+        is stored as compensated float16 pairs (element type float32 then),
+        from ``packed_dtype`` and ``packed_auto_compensate``; a decomposed
+        run's table is never compensated."""
+        dtype = getattr(self, "packed_dtype", None)
+        # a reader whose sampling is approximate anyway may opt into
+        # compensated storage for large tables; an explicit packed_dtype
+        # always wins (the JAX package's rule keeps 'xyz' exact)
+        auto_comp = (dtype is None and not dd_host and pair_mode != "xyz"
+                     and getattr(self, "packed_auto_compensate", False))
+        dtype = dtype or "float32"
+        compensated = dtype in ("float16x2", "f16x2")
+        if compensated:
+            dtype = "float32"
+            compensated = not dd_host
+        if dtype not in TORCH_DTYPES:
+            raise ValueError(
+                f"{self.name}: packed_dtype {dtype!r} is not one of "
+                "'float32', 'float16', 'float16x2'")
+        if auto_comp and rows >= GATHER_FAST_MAX_ROWS:
+            compensated = True
+            logger.info(
+                "Packed table of reader %s has %d rows, at or beyond "
+                "the JAX package's threshold of 2^15; using compensated "
+                "float16-pair storage (~2^-21 relative error; set "
+                "reader.packed_dtype='float32' to force exact rows).",
+                self.name, rows)
+        return dtype, compensated
 
-            def load(v, ti):
-                return self._load_frame(v, ti, m)
-        else:
-            r0, r1 = rows
-            pad_y = 1 if pair_mode in ("xy", "xyz") else 0
+    def _window_sources(self, tidx, Z, M, uv, load):
+        """The frames a window's tables read and, per table, the members'
+        base-column indices into them (``PackWindow``): every variable at
+        every window frame (3D ones cut to Z planes), then the static
+        fields at frame 0, in the order of the table's columns; with
+        ``uv`` also the u/v companion's.  ``load(v, ti, m)`` gives a
+        frame."""
+        frames, index = [], {}
 
-            def load(v, ti):
-                return self._load_frame_rows(v, ti, m, r0, r1 + pad_y)
-        packed = np.empty((Z, r1 - r0 + pad_y, nx, C), dtype=np.float32)
-        for v in self._group3:
-            c0 = col_of[v][0]
-            for fi, ti in enumerate(tidx):
-                packed[:, :, :, c0 + fi] = load(v, ti)[:Z]
-        for v in self._group2:
-            c0 = col_of[v][0]
-            for fi, ti in enumerate(tidx):
-                packed[:, :, :, c0 + fi] = load(v, ti)[None]
-        for v in self._static_packed + self._static_near:
-            packed[:, :, :, col_of[v][0]] = load(v, 0)[None]
-        if pair_mode == "none":
-            return packed
-
-        def shift_x(a):
-            return np.concatenate([a[:, :, 1:], a[:, :, -1:]], axis=2)
-
-        def shift_y(a):
-            return np.concatenate([a[:, 1:], a[:, -1:]], axis=1)
-        # [base | x+1] ('x'), then [y+1 | x+1,y+1] ('xy'), then the same
-        # four at z+1 ('xyz'; the deepest plane repeats, the clamp of
-        # z1 = min(z0+1, Z-1))
-        variants = [packed, shift_x(packed)]
-        if pair_mode in ("xy", "xyz"):
-            variants += [shift_y(packed), shift_x(shift_y(packed))]
-        packed = np.concatenate(variants, axis=3)
-        if pair_mode == "xyz":
-            packed = np.concatenate(
-                [packed, np.concatenate([packed[1:], packed[-1:]], axis=0)],
-                axis=3)
-        if pad_y:
-            packed = packed[:, :-pad_y]
-        return packed
+        def source(v, ti, m):
+            planes = Z if v in self._group3 else 0
+            key = (v, ti, m, planes)
+            if key not in index:
+                owner = load(v, ti, m)
+                array = owner[:Z] if planes else owner.reshape(
+                    owner.shape[-2:])
+                index[key] = len(frames)
+                frames.append((key, owner, array))
+            return index[key]
+        statics = self._static_packed + self._static_near
+        tables = [[[source(v, ti, m) for v in self._group3 + self._group2
+                    for ti in tidx] + [source(v, 0, m) for v in statics]
+                   for m in range(M)]]
+        if uv:
+            tables.append([[source(v, ti, m) for v in UV for ti in tidx]
+                           for m in range(M)])
+        return frames, tables
 
     def packed_rows(self, r0, r1):
         """A per-process band read for domain decomposition: the packed
         rows [r0, r1) of the current window, (M*Z, r1-r0, nx, Cf), read
-        from the source with a small context margin only.  Needs a
-        preceding ``device_state()`` (which records the window's pack
-        plan); ``r1`` may pass the grid for tile padding."""
+        from the source with a small context margin only; the y-neighbour
+        columns take one context row, so the band equals the full-grid
+        table's.  Needs a preceding ``device_state()`` (which records the
+        window's pack plan); ``r1`` may pass the grid for tile padding."""
         plan = self._pack_plan
-        bands = [self._pack_member(m, plan["tidx"], plan["col_of"],
-                                   plan["Z"], plan["C"], plan["pair_mode"],
-                                   rows=(r0, r1))
-                 for m in range(plan["M"])]
-        band = np.concatenate(bands, axis=0) if plan["M"] > 1 else bands[0]
-        dtype = getattr(self, "packed_dtype", None) or "float32"
-        if dtype in ("float16x2", "f16x2"):
-            dtype = "float32"
-        return np.ascontiguousarray(band.astype(np.dtype(dtype)))
+        Z, M, nx = plan["Z"], plan["M"], plan["nx"]
+        pad_y = 1 if plan["pair_mode"] in ("xy", "xyz") else 0
+        frames, tables = self._window_sources(
+            plan["tidx"], Z, M, False,
+            lambda v, ti, m: self._load_frame_rows(v, ti, m, r0,
+                                                   r1 + pad_y))
+        dtype, _ = self._storage(0, plan["pair_mode"], True)
+        band = PackWindow(
+            None, frames, tables, Z, r1 - r0 + pad_y, nx,
+            PackedSampler.PAIR_FACTOR[plan["pair_mode"]],
+            TORCH_DTYPES[dtype]).host_table(0)
+        band = band.reshape(M * Z, r1 - r0 + pad_y, nx, plan["Cf"])
+        return np.ascontiguousarray(band[:, :r1 - r0])
 
     # ---------------------------------------------------------- sampling -
     def _grid_consts(self, device):

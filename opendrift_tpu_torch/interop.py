@@ -24,6 +24,7 @@ import torch
 
 from .elements import ElementState
 from .ops.interp import CompensatedTable, SplitTable
+from .ops.pack import WindowTable
 
 HOST_KEYS = ("times",)
 
@@ -89,6 +90,8 @@ def table_to_numpy(table):
     def host(a):
         return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
     name = type(table).__name__
+    if isinstance(table, WindowTable):
+        return np.asarray(table)
     if name == "CompensatedTable":
         return {"kind": "compensated", "data": host(table.data),
                 "scale": host(table.scale)}
@@ -101,8 +104,9 @@ def table_to_numpy(table):
 
 
 def table_from_numpy(value, device):
-    """The inverse of :func:`table_to_numpy`, onto ``device``."""
-    if isinstance(value, (CompensatedTable, SplitTable)):
+    """The inverse of :func:`table_to_numpy`, onto ``device`` (a
+    :class:`~.ops.pack.WindowTable` is assembled there)."""
+    if isinstance(value, (CompensatedTable, SplitTable, WindowTable)):
         return value.to(device)
     if isinstance(value, dict) and value.get("kind") == "compensated":
         return CompensatedTable(np.asarray(value["data"], np.float16),
@@ -151,7 +155,7 @@ def device_state_from_numpy(arrays, device, keep_host=()):
             out[k] = v
         elif k in HOST_KEYS:
             out[k] = np.asarray(v, dtype=np.float32)
-        elif isinstance(v, (CompensatedTable, SplitTable)) or (
+        elif isinstance(v, (CompensatedTable, SplitTable, WindowTable)) or (
                 isinstance(v, dict) and "kind" in v):
             out[k] = table_from_numpy(v, device)
         elif torch.is_tensor(v):
@@ -174,7 +178,9 @@ def device_state_to_numpy(state):
 def host_nbytes(arrays, device, keep_host=()):
     """The bytes :func:`device_state_from_numpy` hands to ``device`` for
     the same arguments: host arrays and tables, tensors on another device;
-    host keys, ``keep_host`` keys and other entries count 0."""
+    host keys, ``keep_host`` keys, a window's tables (its frames are
+    counted as they go up, ``PackWindow.sent``) and other entries count
+    0."""
     if isinstance(arrays, (tuple, list)):
         return sum(host_nbytes(a, device, keep_host) for a in arrays)
     device = torch.device(device)
@@ -190,7 +196,7 @@ def host_nbytes(arrays, device, keep_host=()):
         return 0
     total = 0
     for k, v in dict(arrays).items():
-        if k in keep_host or k in HOST_KEYS:
+        if k in keep_host or k in HOST_KEYS or isinstance(v, WindowTable):
             continue
         if isinstance(v, CompensatedTable):
             total += nbytes(v.data) + nbytes(v.scale)
@@ -201,3 +207,14 @@ def host_nbytes(arrays, device, keep_host=()):
         else:
             total += nbytes(v)
     return total
+
+
+def pack_windows(arrays):
+    """The distinct windows (:class:`~.ops.pack.PackWindow`) of the tables
+    in a reader's host state (a dict, or a tuple of them)."""
+    if isinstance(arrays, (tuple, list)):
+        found = [w for a in arrays for w in pack_windows(a)]
+    else:
+        found = [v.window for v in dict(arrays).values()
+                 if isinstance(v, WindowTable)]
+    return list({id(w): w for w in found}.values())

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from opendrift_tpu_torch import examples
-from opendrift_tpu_torch.ops import mixing, philox
-from opendrift_tpu_torch.tools import kernel_check
+from opendrift_tpu_torch.ops import mixing, pack, philox
+from opendrift_tpu_torch.tools import kernel_check, pack_ab
 
 MODELS = list(mixing.WINDSPEED_MODELS)
 
@@ -671,3 +671,72 @@ def test_example_runs_on_its_default_device(name, capsys):
     module = importlib.import_module(f"opendrift_tpu_torch.examples.{name}")
     module.main([])
     assert capsys.readouterr().out.strip()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(pack_ab.CASES))
+def test_pack_window_kernel_byte_equal_to_plain_on_the_card(case):
+    """The window assembly kernel against its plain version: the benchmark
+    forecast's tables (16 levels, 300 x 260 cells, 8 base columns, 'xy'
+    with the u/v companion), 'xyz', float16, two members, the wind's 2D
+    table and an odd column count; one launch writes every table."""
+    _card()
+    srcs, tables, args = pack_ab.case_inputs(case, torch.device("cuda"))
+    before = pack.pack_window.launches
+    got = pack.pack_window(srcs, tables, *args)
+    assert pack.pack_window.launches == before + 1
+    want = [pack.assemble_rows_plain(srcs, cols, *args) for cols in tables]
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(tables)
+    for a, b in zip(got, want):
+        assert pack_ab.bytes_equal(a, b)
+
+
+def _norkyst_forecast(path, host_tables, monkeypatch):
+    from opendrift_tpu_torch.fields import grid
+    from opendrift_tpu_torch.fields.netcdf import NetCDFReader
+    from opendrift_tpu_torch.models import OceanDrift
+    from opendrift_tpu_torch.ops.pack import WindowTable
+    if host_tables:
+        device_state = grid.StructuredGridReader.device_state
+
+        def on_host(self, *a):
+            return {k: (np.asarray(v) if isinstance(v, WindowTable) else v)
+                    for k, v in device_state(self, *a).items()}
+        monkeypatch.setattr(grid.StructuredGridReader, "device_state",
+                            on_host)
+    o = OceanDrift(loglevel=50, device="cuda", seed=11)
+    o.add_reader(NetCDFReader(path))
+    o.set_config("drift:vertical_mixing", True)
+    o.set_config("drift:horizontal_diffusivity", 10.0)
+    r = np.random.default_rng(7)
+    n = 50_000
+    o.seed_elements(lon=r.uniform(13.8, 14.2, n),
+                    lat=r.uniform(67.9, 68.1, n),
+                    z=-r.uniform(0.0, 20.0, n), time=datetime(2024, 3, 1))
+    o.run(duration=timedelta(hours=2), time_step=900, time_step_output=3600)
+    return o
+
+
+@pytest.mark.gpu
+def test_norkyst_forecast_through_the_kernel_equals_the_host_packed_one(
+        tmp_path, monkeypatch):
+    """A 2-hour NorKyst800-like forecast (16 levels) through
+    ``NetCDFReader``: its windows assembled on the card by the kernel give
+    the result of the same forecast on tables packed on the host and
+    copied whole, bit for bit."""
+    _card()
+    from opendrift_tpu_torch.tools import synthetic_nc
+    path = str(tmp_path / "norkyst.nc")
+    synthetic_nc.write_norkyst(path, nx=160, ny=140, nz=16, nt=5)
+    before = pack.pack_window.launches
+    card = _norkyst_forecast(path, False, monkeypatch)
+    assert pack.pack_window.launches == before + 3  # 2 windows, the repack
+    assert card.counters["readers.windows_assembled_on_device"] == 3
+    host = _norkyst_forecast(path, True, monkeypatch)
+    assert pack.pack_window.launches == before + 3
+    for var in ("lon", "lat", "z", "status"):
+        a = np.asarray(card.result[var].values)
+        b = np.asarray(host.result[var].values)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))

@@ -290,7 +290,8 @@ def test_auto_compensate_follows_the_row_threshold(explicit):
     jr, tr = _pair(current, x, y, times, depths=depths)
     jr.packed_auto_compensate = tr.packed_auto_compensate = True
     jstate, host, _ = _state_pair(jr, tr)
-    assert isinstance(host["packed"], np.ndarray)
+    assert not isinstance(host["packed"], tinterp.CompensatedTable)
+    assert host["packed"].dtype == np.float32
     _assert_tables_equal(host, jstate)
 
 

@@ -293,7 +293,7 @@ def test_not_yet_ported_readers_name_their_item():
                          [F.T0, F.T0 + timedelta(hours=1)])
     grid.set_run_epoch(F.T0)
     whole = grid.device_state(F.T0, F.T0 + timedelta(hours=1))
-    state = {k: (torch.as_tensor(v) if k != "times" else v)
+    state = {k: (torch.as_tensor(np.asarray(v)) if k != "times" else v)
              for k, v in whole.items()}
     lon = torch.tensor([1.25, 2.5])
     lat = torch.tensor([63.5, 64.25])
@@ -301,7 +301,7 @@ def test_not_yet_ported_readers_name_their_item():
                           lon, lat, torch.zeros(2))
     # rows 2..5 of the grid as a tile band with y_off = 2
     s = grid._sampler
-    band = torch.as_tensor(whole["packed"]).reshape(s.Y, s.X, -1)[2:]
+    band = state["packed"].reshape(s.Y, s.X, -1)[2:]
     tile = dict(state, packed=band.reshape(-1, band.shape[-1]), y_off=2.0)
     grid._sampler = PackedSampler(s.Z, 4, s.X, s.F, s.col_of, s.pair_mode)
     got, covers = grid.sample(tile, ["x_sea_water_velocity"],
