@@ -95,6 +95,44 @@ def _seconds(value):
     return float(value)
 
 
+_MICROSECOND = timedelta(microseconds=1)
+
+
+def _spread_times(t0, t1, number):
+    """``number`` datetimes spread evenly over [t0, t1]: the i-th is
+    ``t0 + frac[i] * (t1 - t0)`` with ``frac = linspace(0, 1, number)``,
+    rounded to the microsecond as ``timedelta`` rounds it (half to even).
+    Made in bulk for plain datetimes without a time zone."""
+    frac = np.linspace(0, 1, number)
+    span = t1 - t0
+    if type(t0) is not datetime or type(t1) is not datetime \
+            or t0.tzinfo is not None or t1.tzinfo is not None:
+        return np.array([t0 + f * span for f in frac])
+    us = frac * (span // _MICROSECOND)
+    rounded = np.rint(us)
+    # where the float product lies within its rounding of a half, the
+    # exact product may round the other way: those are made as timedelta
+    # makes them
+    for i in np.flatnonzero(np.abs(us - np.floor(us) - 0.5) < 1e-4):
+        rounded[i] = (frac[i] * span) // _MICROSECOND
+    return (np.datetime64(t0, "us")
+            + rounded.astype(np.int64).astype("timedelta64[us]")
+            ).astype(object)
+
+
+def _stack_frames(columns):
+    """The frames' (..., N) host arrays of one variable stacked on a last
+    axis, (..., N, T): by torch's threaded copy where it takes the arrays
+    (numpy's stack on the last axis writes one value at a time)."""
+    if all(c.flags.writeable and c.dtype.kind in "biuf" for c in columns):
+        try:
+            return torch.stack([torch.from_numpy(c) for c in columns],
+                               dim=-1).numpy()
+        except TypeError:    # a dtype torch lacks
+            pass
+    return np.stack(columns, axis=-1)
+
+
 class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                           Configurable):
     """Abstract base simulation.  Subclasses define ``ElementType``,
@@ -374,6 +412,14 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                 if ln.strip() and not ln.startswith("#")]
 
     # ----------------------------------------------------------- seeding --
+    def _seed_count(self, lon, z, number):
+        """How many elements a seeding makes: ``number`` where given, else
+        one a position (or a depth) given, at least ``seed:number``."""
+        if number is not None:
+            return number
+        return max(np.size(lon), len(z) if np.ndim(z) else 0,
+                   int(self.get_config("seed:number")))
+
     @require_mode([Mode.Config, Mode.Ready])
     def seed_elements(self, lon, lat, time=None, radius=0, number=None,
                       radius_type="gaussian", origin_marker=None, **kwargs):
@@ -385,12 +431,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         if len(lon) != len(lat):
             raise ValueError("lon and lat must have equal length")
         num_points = len(lon)
-        if number is None:
-            number = len(kwargs.get("z", [])) \
-                if np.ndim(kwargs.get("z", 0)) else 0
-            number = max(number, num_points,
-                         int(self.get_config("seed:number")))
-        number = int(number)
+        number = int(self._seed_count(lon, kwargs.get("z", 0), number))
         if number < 1:
             raise ValueError(
                 f"Number of elements to seed must be >= 1, got {number}")
@@ -411,10 +452,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             raise ValueError("Time of seeding must be specified")
         if isinstance(time, (list, tuple)) and len(time) == 2 \
                 and isinstance(time[0], datetime):
-            t0, t1 = time
-            frac = np.linspace(0, 1, number)
-            times = np.array([t0 + frac[i] * (t1 - t0)
-                              for i in range(number)])
+            times = _spread_times(*time, number)
         elif isinstance(time, datetime):
             times = np.full(number, time, dtype=object)
         else:
@@ -1338,12 +1376,15 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             return lon, lat
         from scipy.spatial import cKDTree
         pts = np.column_stack([lon, lat])
+        # each point's query is its own: all cores give the same answer
         _, idx = cKDTree(np.column_stack([lons_g.ravel(),
-                                          lats_g.ravel()])).query(pts)
+                                          lats_g.ravel()])).query(
+            pts, workers=-1)
         on_land = land.ravel()[idx] > 0.5
         if on_land.any():
             _, oidx = cKDTree(np.column_stack(
-                [lons_g[ocean], lats_g[ocean]])).query(pts[on_land])
+                [lons_g[ocean], lats_g[ocean]])).query(pts[on_land],
+                                                       workers=-1)
             lon[on_land] = lons_g[ocean][oidx]
             lat[on_land] = lats_g[ocean][oidx]
         return lon, lat
@@ -1668,7 +1709,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         names = list(frames[0].keys())
         # particle sharding pads the element axis: keep the real elements
         cut = getattr(self, "_n_real_elements", None) if trim else None
-        stacked = {n: np.stack([f[n][..., :cut] for f in frames], axis=-1)
+        stacked = {n: _stack_frames([f[n][..., :cut] for f in frames])
                    for n in names}  # (N, T)
         # valid: active frames plus the first dead frame (reference
         # basemodel/__init__.py:2390-2396)
@@ -1682,7 +1723,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                 attrs = {k: v for k, v in spec.items()
                          if k in ("units", "standard_name", "description")}
             if np.issubdtype(vals.dtype, np.floating):
-                vals = np.where(valid, vals, np.nan)
+                np.copyto(vals, np.nan, where=~valid)
             variables[n] = DataVar(("trajectory", "time"), vals, attrs)
         coords = {
             "trajectory": np.arange(1, stacked["status"].shape[0] + 1),

@@ -222,12 +222,9 @@ class OpenOil(OceanDrift):
         if "mass_oil" not in kwargs:
             if m3_per_hour is None:
                 m3_per_hour = self.get_config("seed:m3_per_hour")
-            number = kwargs.get("number")
-            if number is None:
-                try:
-                    number = self.get_config("seed:number")
-                except ValueError:
-                    number = 1
+            lon = args[0] if args else kwargs.get("lon", 0.0)
+            number = self._seed_count(lon, kwargs.get("z", 0.0),
+                                      kwargs.get("number"))
             number = int(np.sum(number))   # arrays seed per-point counts
             time = kwargs.get("time")
             if isinstance(time, (list, tuple)) and len(time) == 2:
@@ -436,8 +433,11 @@ class OpenOil(OceanDrift):
 
     def _droplet_diameter_distribution(self, ctx):
         """(dV_50 scalar, Sd) of the lognormal droplet volume spectrum
-        (reference openoil.py:1066-1180).  dV_50 is the mean over all
-        elements, a sum whose order differs between devices and libraries
+        (reference openoil.py:1066-1180).  dV_50 is the mean over the
+        active elements, as upstream takes it over its element arrays,
+        which hold only the oil in the water (not the oil yet to be
+        released, nor the stranded); with no active element, over all of
+        them.  The sum's order differs between devices and libraries
         (agreement to float32 rounding, not to the bit)."""
         d = ctx.state.data
         sigma = self.oil_water_interfacial_tension
@@ -461,10 +461,18 @@ class OpenOil(OceanDrift):
             A, Bp = 2.251, 0.027
             dN_50 = A * h * we ** -0.6 + A * Bp * h * re ** -0.6
             dV_50 = torch.exp(torch.log(dN_50) + 3.0 * Sd ** 2)
-        # reference collapses to the mean median diameter across elements
-        # (all of them, in a particle-sharded run too)
-        dV_50 = torch.nanmean(gathered(dV_50))
-        return dV_50, Sd
+        return self._mean_median_diameter(dV_50, ctx), Sd
+
+    def _mean_median_diameter(self, dV_50, ctx):
+        """The mean of the elements' median diameters ``dV_50`` across the
+        active elements (all tiles' of a particle-sharded run: one gather
+        of both rows); with no active element, across all of them."""
+        dV_all, active = gathered(torch.stack(
+            [dV_50, ctx.active.to(dV_50.dtype)]))
+        use = (active > 0) & ~torch.isnan(dV_all)
+        count = use.sum()
+        mean = torch.where(use, dV_all, 0.0).sum() / count
+        return torch.where(count > 0, mean, torch.nanmean(dV_all))
 
     def prepare_vertical_mixing(self, ctx):
         """Entrainment probability + per-element candidate droplet size
@@ -499,6 +507,7 @@ class OpenOil(OceanDrift):
                 is not OpenOil.terminal_velocity_inner
                 or not self.get_config("vertical_mixing:use_pallas",
                                        default=True)):
+            self.count("oil.mixing_generic_steps")
             return False
 
         d = ctx.state.data
@@ -535,6 +544,7 @@ class OpenOil(OceanDrift):
         ctx.set_var("z", torch.where(active, z_out, d["z"]))
         ctx.set_var("diameter", torch.where(active, diam_out,
                                             d["diameter"]))
+        self.count("oil.mixing_fast_path_steps")
         return True
 
     def surface_wave_mixing(self, ctx, mix, dt_mix, key):
@@ -654,11 +664,21 @@ class OpenOil(OceanDrift):
             ctx.advect_with_sea_ice(factor=k_ice)
 
     # ------------------------------------------------------------- update --
+    def vertical_mixing(self, ctx, store_depths=False):
+        """OceanDrift's mixing cycle (the entrainment probability, the
+        droplet spectrum with its mean, the candidate diameters, then the
+        oil kernel or the generic loop) as the span ``main
+        loop:advance:oil mixing``."""
+        with self.timed("main loop:advance:oil mixing"):
+            super().vertical_mixing(ctx, store_depths)
+
     def update(self, ctx):
-        """(reference openoil.py:1218-1243)."""
+        """(reference openoil.py:1218-1243).  The weathering is the span
+        ``main loop:advance:weathering``."""
         if self.get_config("processes:update_oilfilm_thickness"):
             self.update_surface_oilfilm_thickness(ctx)
-        self.oil_weathering(ctx)
+        with self.timed("main loop:advance:weathering"):
+            self.oil_weathering(ctx)
         if self.get_config("drift:vertical_mixing"):
             self.update_terminal_velocity(ctx)
             self.vertical_mixing(ctx)
@@ -672,10 +692,15 @@ class OpenOil(OceanDrift):
         (reference openoil.py:1241-1340)."""
         ds = self.result
         out = {}
-        for key, var in (("mass_evaporated", "mass_evaporated"),
-                         ("mass_dispersed", "mass_dispersed"),
-                         ("mass_biodegraded", "mass_biodegraded")):
-            vals = np.nan_to_num(np.asarray(ds[var].values), nan=0.0)
+        for key, process in (("mass_evaporated", "evaporation"),
+                             ("mass_dispersed", "dispersion"),
+                             ("mass_biodegraded", "biodegradation")):
+            if key not in ds.variables \
+                    and not self.get_config(f"processes:{process}"):
+                # not exported, and nothing was lost to the process
+                out[key] = np.zeros(len(ds.coords["time"]))
+                continue
+            vals = np.nan_to_num(np.asarray(ds[key].values), nan=0.0)
             out[key] = vals.sum(axis=0)
         z = np.asarray(ds["z"].values)
         mass = np.nan_to_num(np.asarray(ds["mass_oil"].values), nan=0.0)

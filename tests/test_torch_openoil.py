@@ -446,11 +446,22 @@ def test_weathering_process_matches_jax(process, oil):
     "update_surface_oilfilm_thickness", "prepare_vertical_mixing",
     "advect_oil"])
 def test_entrainment_and_rise_functions_match_jax(what):
+    """The droplet spectrum's median is a mean over the active elements in
+    the port (as upstream) and over all of them in the JAX package: those
+    cases are held against the JAX package with every element active, and
+    against the benchmark's plain reference with a tenth retired."""
     config = {}
     if what == "droplets_li":
         config["wave_entrainment:droplet_size_distribution"] = \
             "Li et al. (2017)"
     oj, cj, ot, ct = _contexts(seed=1, **config)
+    if what.startswith("droplets") or what == "prepare_vertical_mixing":
+        _matches_the_plain_reference(what, ot, _contexts(seed=1,
+                                                         **config)[3])
+        cj.state = cj.state.replace(
+            status=jnp.zeros_like(cj.state.data["status"]))
+        ct.state = ct.state.replace(
+            status=torch.zeros_like(ct.state.data["status"]))
     if what == "oil_wave_entrainment_rate":
         got, want = ot.oil_wave_entrainment_rate(ct), \
             oj.oil_wave_entrainment_rate(cj)
@@ -491,6 +502,49 @@ def test_entrainment_and_rise_functions_match_jax(what):
         _assert_states_close(ct, cj)
         return
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+
+
+def _matches_the_plain_reference(what, ot, ct):
+    """The droplet spectrum's median, and for ``prepare_vertical_mixing``
+    the entrainment probability and the candidate diameters, against
+    ``drift_bench/reference/openoil.py`` on the same context (a tenth of
+    its elements retired).  rtol as against the JAX package: float32 exp,
+    log and powers round alike to an ulp or two; the mean is a float32 sum
+    in the port and a float64 one in the reference."""
+    from drift_bench.reference import draws, torch_draws
+    from drift_bench.reference import openoil as ref
+    d = ct.state.data
+    active = ct.active
+    assert (~active).any() and active.any()
+    scheme = ot.get_config("wave_entrainment:droplet_size_distribution")
+    hs = ct.significant_wave_height()
+    rho_w = ct.sea_water_density()
+    median = ref.median_diameter(ref.droplet_medians(
+        scheme, ot.oil_water_interfacial_tension, rho_w, d["density"],
+        d["viscosity"], d["oil_film_thickness"], hs), active)
+    if what.startswith("droplets"):
+        got, _ = ot._droplet_diameter_distribution(ct)
+        np.testing.assert_allclose(got.numpy(), median.numpy(), rtol=RTOL)
+        # the mean is the active elements': the retired ones do not move it
+        ct.state = ct.state.replace(
+            density=torch.where(active, d["density"], 990.0),
+            oil_film_thickness=torch.where(active, d["oil_film_thickness"],
+                                           1e-2))
+        again, _ = ot._droplet_diameter_distribution(ct)
+        assert again == got
+        return
+    ot.prepare_vertical_mixing(ct)
+    rate = ref.entrainment_rate(
+        ot.oil_water_interfacial_tension, rho_w, d["density"],
+        d["viscosity"], hs, ct.wind_speed(), ct.wave_period())
+    np.testing.assert_allclose(ct._oil_entrainment_probability.numpy(),
+                               (1.0 - torch.exp(-rate * 60.0)).numpy(),
+                               rtol=RTOL, atol=1.2e-7)
+    draw = torch_draws.normal(draws.fold_in(draws.prng_key(5), 1),
+                              d["z"].shape[0], "cpu")
+    np.testing.assert_allclose(
+        ct._droplet_diameter_if_entrained.numpy(),
+        ref.candidate_diameters(median, draw).numpy(), rtol=RTOL)
 
 
 def test_oilfilm_thickness_with_nothing_at_the_surface():
@@ -630,8 +684,16 @@ def test_openoil_slice_matches_jax_from_a_carried_state(monkeypatch):
 def test_openoil_run_with_a_coast_matches_jax(monkeypatch):
     """``run()`` on both packages with the default 'environment'
     diffusivity model (no reader serves it) and a reader-served landmask:
-    oil strands, and the budgets agree."""
+    oil strands, and the budgets agree.  Once stranded, an element leaves
+    the droplet spectrum's mean in the port (as upstream) and not in the
+    JAX package; the port's mean is set back to the JAX package's here,
+    and held against the plain reference in the next test."""
     monkeypatch.setattr(pallas_mixing, "FORCE_INTERPRET", True)
+    from opendrift_tpu_torch.models import OpenOil
+    from opendrift_tpu_torch.parallel.mesh import gathered
+    monkeypatch.setattr(OpenOil, "_mean_median_diameter",
+                        lambda self, dV_50, ctx:
+                        torch.nanmean(gathered(dV_50)))
     runs = {}
     for pkg in ("jax", "torch"):
         o = _oil_simulation(pkg, coast=True, model=None)
@@ -657,6 +719,48 @@ def test_openoil_run_with_a_coast_matches_jax(monkeypatch):
     np.testing.assert_allclose(ot.cumulative_oil_entrainment_fraction(),
                                oj.cumulative_oil_entrainment_fraction(),
                                atol=0.02)
+
+
+def test_openoil_run_with_a_coast_matches_the_plain_reference():
+    """``run()`` of a day with a coast and a release over 6 h, against the
+    benchmark's plain reference (drift_bench/reference/openoil.py) on the
+    benchmark's own files: oil strands, and the positions (those of the
+    frames where an element strands among them), the oil's columns and
+    the budgets agree at the bounds this file holds the JAX package to."""
+    from test_torch_openoil_reference import both_sides, small_cell
+    program, reference = both_sides(small_cell(hours=24, over_h=6.0),
+                                    2 ** 31 + 23)
+    ot = program.pop("model")
+    st, sr = program["status"], reference["status"]
+    assert st.shape == sr.shape == (2000, 25)
+    assert np.mean(st != sr) <= 0.01
+    assert (st[:, -1] == "stranded").sum() > 10
+    # the program holds a position while active and at the first frame
+    # after, where the stranded ones are held to the reference's too
+    held = np.isfinite(program["lon"])
+    strands = held & (sr == "stranded")
+    assert strands.sum() > 10
+    for var in ("lon", "lat", "z", "mass_oil", "mass_evaporated",
+                "mass_dispersed", "water_fraction"):
+        _assert_slice_close(program[var][held], reference[var][held], var)
+
+    def budget(side):
+        mass = np.where(held, np.nan_to_num(side["mass_oil"]), 0.0)
+        z = np.where(held, np.nan_to_num(side["z"]), 1.0)
+        out = {k: np.where(held, np.nan_to_num(side[k]), 0.0).sum(0)
+               for k in ("mass_evaporated", "mass_dispersed")}
+        out["mass_submerged"] = np.where(z < 0, mass, 0.0).sum(0)
+        out["mass_surface"] = np.where(z == 0, mass, 0.0).sum(0)
+        return out
+    bt, br = ot.get_oil_budget(), budget(reference)
+    for k in br:
+        np.testing.assert_allclose(bt[k], br[k], rtol=2e-2,
+                                   atol=1e-3 * bt["mass_total"][0],
+                                   err_msg=k)
+    entrained = np.logical_or.accumulate(held & (np.nan_to_num(
+        reference["z"]) < 0), axis=1).sum(0) / len(sr)
+    np.testing.assert_allclose(ot.cumulative_oil_entrainment_fraction(),
+                               entrained, atol=0.02)
 
 
 GENERIC_LOOP_CASES = {
