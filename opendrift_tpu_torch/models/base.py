@@ -133,6 +133,25 @@ def _stack_frames(columns):
     return np.stack(columns, axis=-1)
 
 
+def _frame_budget(device):
+    """Bytes of output frames a run may keep on ``device`` until its
+    result is assembled: half the card's free memory, no limit on the
+    CPU."""
+    if device.type != "cuda":
+        return float("inf")
+    return torch.cuda.mem_get_info(device)[0] // 2
+
+
+def _invalid_on_device(status):
+    """Where ``io_netcdf.valid_mask`` of an (N, T) status tensor is false,
+    computed where the tensor lies: the frames before an element's release
+    and those after its first dead one."""
+    dead = status > ACTIVE
+    invalid = status < ACTIVE
+    invalid[:, 1:] |= dead[:, 1:] & dead[:, :-1]
+    return invalid
+
+
 class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                           Configurable):
     """Abstract base simulation.  Subclasses define ``ElementType``,
@@ -817,13 +836,21 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         * ``main loop``: ``:readers`` each window (``:join wait``,
           ``:pack`` on this thread, ``:copy``), ``:advance`` (an interval's
           launches, and the final snapshot's), ``:to host`` (the frame's
-          copy, which waits for the card), ``:export``;
-        * ``postprocessing``: ``:assemble``, ``:export``;
+          hand-off: a copy on the device, or to the host, which waits for
+          the card), ``:export``;
+        * ``postprocessing``: ``:assemble`` (with frames on the device,
+          the copies to the host), ``:export``;
 
         and ``prefetch:pack`` on the prefetch thread, outside the timers.
         The counters (``self.counters``): ``readers.h2d_bytes``,
         ``run.d2h_bytes``, ``readers.windows_prefetched``,
-        ``readers.windows_packed_on_loop``."""
+        ``readers.windows_packed_on_loop``, ``run.frames_kept_on_device``,
+        ``run.results_assembled_on_device``.
+
+        On one device, without a flushing outfile, the output frames stay
+        on the device when all of them fit in half its free memory, and
+        the result is assembled there; otherwise each frame is copied to
+        the host at its interval."""
         self.next_run()
         profile_dir = self.get_config("general:profile_dir")
         profiler = self._start_profiler(profile_dir) if profile_dir else None
@@ -936,9 +963,24 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
 
         dd, sharding = self._dd, self._sharding
         from ..parallel.mesh import gather_tiles
+        # the plain path keeps its frames on the device until the result
+        # is assembled where all of them fit in half the free memory: the
+        # first frame tells their size
+        keep = None if not exporting and dd is None and sharding is None \
+            else False
+        budget = _frame_budget(self.device) if keep is None else 0
 
         def host(snap):
+            nonlocal keep
             with self.timed("main loop:to host"):
+                if keep is None:
+                    keep = sum(v.nbytes for v in snap.values()) * (
+                        n_intervals + 1) <= budget
+                if keep:
+                    # a copy on the device: later in-place writes to the
+                    # state's tensors do not reach it
+                    self.count("run.frames_kept_on_device")
+                    return {n: v.clone() for n, v in snap.items()}
                 if sharded_out:
                     # O(local): this process's slots only
                     frame = multihost.local_rows(
@@ -1705,28 +1747,24 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
 
     # --------------------------------------------------- result assembly --
     def _assemble_result(self, frames, frame_times, trim=True):
-        from ..export.io_netcdf import valid_mask
         names = list(frames[0].keys())
         # particle sharding pads the element axis: keep the real elements
         cut = getattr(self, "_n_real_elements", None) if trim else None
-        stacked = {n: _stack_frames([f[n][..., :cut] for f in frames])
-                   for n in names}  # (N, T)
-        # valid: active frames plus the first dead frame (reference
-        # basemodel/__init__.py:2390-2396)
-        valid = valid_mask(stacked["status"], ACTIVE)
+        columns = {n: [f[n][..., :cut] for f in frames] for n in names}
+        if isinstance(frames[0]["status"], torch.Tensor):
+            values = self._columns_from_device(columns)
+        else:
+            values = self._columns_on_host(columns)
         variables = {}
         for n in names:
-            vals = stacked[n]
             attrs = {}
             if n in self.ElementType.variables:
                 spec = self.ElementType.variables[n]
                 attrs = {k: v for k, v in spec.items()
                          if k in ("units", "standard_name", "description")}
-            if np.issubdtype(vals.dtype, np.floating):
-                np.copyto(vals, np.nan, where=~valid)
-            variables[n] = DataVar(("trajectory", "time"), vals, attrs)
+            variables[n] = DataVar(("trajectory", "time"), values[n], attrs)
         coords = {
-            "trajectory": np.arange(1, stacked["status"].shape[0] + 1),
+            "trajectory": np.arange(1, values["status"].shape[0] + 1),
             "time": np.array(frame_times, dtype="datetime64[ns]"),
         }
         attrs = {
@@ -1741,6 +1779,50 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         attrs.update(self._config_to_attributes())
         attrs.update(getattr(self, "_extra_metadata", {}))
         return TrajectoryDataset(variables, coords, attrs)
+
+    def _columns_on_host(self, columns):
+        """The host frames of each variable stacked into (N, T), floats
+        NaN where the frame is not valid."""
+        from ..export.io_netcdf import valid_mask
+        stacked = {n: _stack_frames(c) for n, c in columns.items()}
+        # valid: active frames plus the first dead frame (reference
+        # basemodel/__init__.py:2390-2396)
+        valid = valid_mask(stacked["status"], ACTIVE)
+        for vals in stacked.values():
+            if np.issubdtype(vals.dtype, np.floating):
+                np.copyto(vals, np.nan, where=~valid)
+        return stacked
+
+    def _columns_from_device(self, columns):
+        """The device frames of each variable stacked into (N, T) and
+        NaN-filled where they lie, then brought to the host in one copy,
+        a column at a time: the peak is the frames and one column."""
+        status = torch.stack(columns["status"], dim=-1)
+        on_card = status.device.type == "cuda"
+
+        def to_host(column):
+            self.count("run.d2h_bytes", column.nbytes)
+            if not on_card:
+                return column
+            # pinned memory from torch's caching host allocator, which a
+            # later run's columns reuse once this result is gone; the copy
+            # is queued, and waited for below
+            out = torch.empty(column.shape, dtype=column.dtype,
+                              pin_memory=True)
+            return out.copy_(column, non_blocking=True)
+        invalid = _invalid_on_device(status)
+        values = {"status": to_host(status)}
+        del status
+        for n, frames in columns.items():
+            if n != "status":
+                column = torch.stack(frames, dim=-1)
+                if column.is_floating_point():
+                    column.masked_fill_(invalid, float("nan"))
+                values[n] = to_host(column)
+        if on_card:
+            torch.cuda.current_stream(invalid.device).synchronize()
+        self.count("run.results_assembled_on_device")
+        return {n: v.numpy() for n, v in values.items()}
 
     def num_elements_total(self):
         return self.num_elements_scheduled_total

@@ -740,3 +740,49 @@ def test_norkyst_forecast_through_the_kernel_equals_the_host_packed_one(
         b = np.asarray(host.result[var].values)
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _oil_forecast(n=200_000):
+    from opendrift_tpu_torch.models import OpenOil
+    from opendrift_tpu_torch.fields import ConstantReader
+    o = OpenOil(loglevel=40, device="cuda", seed=6)
+    o.add_reader(ConstantReader({
+        "x_wind": 11.0, "y_wind": 2.0, "x_sea_water_velocity": 0.1,
+        "y_sea_water_velocity": 0.05,
+        "sea_floor_depth_below_sea_level": 60.0}))
+    o.set_config("environment:fallback:land_binary_mask", 0)
+    t0 = datetime(2020, 1, 1)
+    o.seed_elements(lon=4.0, lat=60.0, number=n, radius=2000,
+                    time=[t0, t0 + timedelta(hours=2)], m3_per_hour=50.0)
+    o.run(duration=timedelta(hours=4), time_step=900, time_step_output=3600)
+    return o
+
+
+@pytest.mark.gpu
+def test_an_oil_result_assembled_on_the_card_equals_the_per_interval_one(
+        monkeypatch):
+    """A 200,000-element OpenOil forecast released over two hours: the
+    frames kept on the card and assembled there give the result, byte for
+    byte, of the frames copied to the host at each interval, which a
+    budget the frames exceed selects."""
+    _card()
+    from opendrift_tpu_torch.models import base
+    kept = _oil_forecast()
+    assert kept.counters["run.frames_kept_on_device"] == 5
+    assert kept.counters["run.results_assembled_on_device"] == 1
+    frame_bytes = kept.counters["run.d2h_bytes"]
+    monkeypatch.setattr(base, "_frame_budget", lambda device: frame_bytes)
+    assert "run.frames_kept_on_device" in _oil_forecast().counters
+    monkeypatch.setattr(base, "_frame_budget",
+                        lambda device: frame_bytes - 1)
+    copied = _oil_forecast()
+    assert "run.frames_kept_on_device" not in copied.counters
+    assert "run.results_assembled_on_device" not in copied.counters
+    assert copied.counters["run.d2h_bytes"] == frame_bytes
+    assert list(kept.result.variables) == list(copied.result.variables)
+    for name in copied.result.variables:
+        a, b = kept.result[name].values, copied.result[name].values
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.flags.c_contiguous and a.tobytes() == b.tobytes(), name
+    lon = kept.result["lon"].values
+    assert np.isnan(lon[-1, 0]) and np.isfinite(lon[-1, -1])
