@@ -120,19 +120,6 @@ def _spread_times(t0, t1, number):
             ).astype(object)
 
 
-def _stack_frames(columns):
-    """The frames' (..., N) host arrays of one variable stacked on a last
-    axis, (..., N, T): by torch's threaded copy where it takes the arrays
-    (numpy's stack on the last axis writes one value at a time)."""
-    if all(c.flags.writeable and c.dtype.kind in "biuf" for c in columns):
-        try:
-            return torch.stack([torch.from_numpy(c) for c in columns],
-                               dim=-1).numpy()
-        except TypeError:    # a dtype torch lacks
-            pass
-    return np.stack(columns, axis=-1)
-
-
 def _frame_budget(device):
     """Bytes of output frames a run may keep on ``device`` until its
     result is assembled: half the card's free memory, no limit on the
@@ -142,10 +129,11 @@ def _frame_budget(device):
     return torch.cuda.mem_get_info(device)[0] // 2
 
 
-def _invalid_on_device(status):
+def _invalid_frames(status):
     """Where ``io_netcdf.valid_mask`` of an (N, T) status tensor is false,
     computed where the tensor lies: the frames before an element's release
-    and those after its first dead one."""
+    and those after its first dead one (the reference keeps the active
+    frames and the first dead one, basemodel/__init__.py:2390-2396)."""
     dead = status > ACTIVE
     invalid = status < ACTIVE
     invalid[:, 1:] |= dead[:, 1:] & dead[:, :-1]
@@ -957,46 +945,42 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             if writer is not None and pending and (
                     force or len(pending) >= buffer_length):
                 cut = None if sharded_out else n_real
-                writer.append([{n: v[..., :cut] for n, v in f.items()}
-                               for f in pending], frame_times[flushed:])
+                writer.append([{n: np.asarray(v)[..., :cut]
+                                for n, v in f.items()} for f in pending],
+                              frame_times[flushed:])
                 flushed = len(frames)
 
-        dd, sharding = self._dd, self._sharding
-        from ..parallel.mesh import gather_tiles
+        placement = self._dd or self._sharding
         # the plain path keeps its frames on the device until the result
         # is assembled where all of them fit in half the free memory: the
         # first frame tells their size
-        keep = None if not exporting and dd is None and sharding is None \
-            else False
-        budget = _frame_budget(self.device) if keep is None else 0
+        keepable = not exporting and placement is None
+        budget = _frame_budget(self.device) if keepable else 0
+        keep = False
 
         def host(snap):
-            nonlocal keep
             with self.timed("main loop:to host"):
-                if keep is None:
-                    keep = sum(v.nbytes for v in snap.values()) * (
-                        n_intervals + 1) <= budget
                 if keep:
                     # a copy on the device: later in-place writes to the
                     # state's tensors do not reach it
                     self.count("run.frames_kept_on_device")
                     return {n: v.clone() for n, v in snap.items()}
-                if sharded_out:
-                    # O(local): this process's slots only
-                    frame = multihost.local_rows(
-                        snap, (dd or sharding).mesh)[0]
-                elif dd is not None:
-                    export = self.export_variables
-                    frame = dd.reorder_frame(
-                        gather_tiles(snap), n_real,
-                        keep_id=export is None or "ID" in export)
-                elif sharding is not None:
-                    frame = gather_tiles(snap)
+                if placement is not None:
+                    frame = placement.host_frame(snap, local=sharded_out)
                 else:
-                    frame = {n: v.cpu().numpy() for n, v in snap.items()}
-            self.count("run.d2h_bytes", sum(int(getattr(v, "nbytes", 0))
+                    frame = {n: v.cpu() for n, v in snap.items()}
+            self.count("run.d2h_bytes", sum(int(v.nbytes)
                                             for v in frame.values()))
             return frame
+
+        def assemble():
+            result = self._assemble_result(frames, frame_times,
+                                           trim=not sharded_out)
+            if keep:
+                self.count("run.d2h_bytes", sum(
+                    result[n].values.nbytes for n in result.variables))
+                self.count("run.results_assembled_on_device")
+            return result
 
         def device_states(k):
             # host packing and the copy to the device, timed apart from
@@ -1006,9 +990,9 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             with self.timed("main loop:readers"):
                 states = self.env.build_device_states(
                     *window(k), category="main loop:readers")
-                if dd is not None:
+                if self._dd is not None:
                     with self.timed("main loop:readers:copy"):
-                        states = dd.retile(states)
+                        states = self._dd.retile(states)
             return states
         try:
             for k in range(n_intervals):
@@ -1026,6 +1010,9 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
                 with self.timed("main loop:advance"):
                     state, snap = advance(state, dev_states, t_rel,
                                           rng.fold_in(base_key, k))
+                if k == 0 and keepable:
+                    frame_bytes = sum(v.nbytes for v in snap.values())
+                    keep = frame_bytes * (n_intervals + 1) <= budget
                 frames.append(host(snap))
                 frame_times.append(self.start_time
                                    + timedelta(seconds=float(t_rel)))
@@ -1040,19 +1027,16 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
             frames.append(host(snap))
             frame_times.append(self.start_time
                                + timedelta(seconds=float(t_rel)))
-            if dd is not None or sharding is not None:
-                self.state = element_state_from_numpy(
-                    gather_tiles([s.data for s in state]), self.device)
-            else:
-                self.state = state
+            self.state = state if placement is None else \
+                element_state_from_numpy(placement.host_state(state),
+                                         self.device)
         except Exception:
             self.env.cancel_prefetch()
             if writer is not None:
                 flush(force=True)
                 writer.abort_close()
             if frames:
-                self.result = self._assemble_result(
-                    frames, frame_times, trim=not sharded_out)
+                self.result = assemble()
                 self.mode = Mode.Result
             self.timer_end("main loop")
             raise
@@ -1062,8 +1046,7 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         # sharded output: self.result holds this process's own slots (with
         # an ID variable); the global file comes from concat_shards
         with self.timed("postprocessing:assemble"):
-            self.result = self._assemble_result(frames, frame_times,
-                                                trim=not sharded_out)
+            self.result = assemble()
         if outfile is not None:
             with self.timed("postprocessing:export"):
                 if writer is not None:
@@ -1747,16 +1730,43 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
 
     # --------------------------------------------------- result assembly --
     def _assemble_result(self, frames, frame_times, trim=True):
-        names = list(frames[0].keys())
+        """The frames (dicts of (..., N) tensors, on the device or the
+        host, or numpy arrays) as the run's result: each variable stacked
+        into (..., N, T) where its frames lie, floats NaN where the frame
+        is not valid; frames on the card are brought to the host in one
+        copy a column, one column at a time: the peak is the frames and
+        one column."""
         # particle sharding pads the element axis: keep the real elements
         cut = getattr(self, "_n_real_elements", None) if trim else None
-        columns = {n: [f[n][..., :cut] for f in frames] for n in names}
-        if isinstance(frames[0]["status"], torch.Tensor):
-            values = self._columns_from_device(columns)
-        else:
-            values = self._columns_on_host(columns)
+
+        def stacked(name):
+            return torch.stack([torch.as_tensor(f[name])[..., :cut]
+                                for f in frames], dim=-1)
+        status = stacked("status")
+        on_card = status.device.type == "cuda"
+
+        def to_host(column):
+            if not on_card:
+                return column.numpy()
+            # pinned memory from torch's caching host allocator, which a
+            # later run's columns reuse once this result is gone; the copy
+            # is queued, and waited for below
+            out = torch.empty(column.shape, dtype=column.dtype,
+                              pin_memory=True)
+            return out.copy_(column, non_blocking=True).numpy()
+        invalid = _invalid_frames(status)
+        values = {"status": to_host(status)}
+        del status
+        for n in frames[0]:
+            if n != "status":
+                column = stacked(n)
+                if column.is_floating_point():
+                    column.masked_fill_(invalid, float("nan"))
+                values[n] = to_host(column)
+        if on_card:
+            torch.cuda.current_stream(invalid.device).synchronize()
         variables = {}
-        for n in names:
+        for n in frames[0]:
             attrs = {}
             if n in self.ElementType.variables:
                 spec = self.ElementType.variables[n]
@@ -1779,50 +1789,6 @@ class OpenDriftSimulation(PostProcessingMixin, PlottingMixin, Timeable,
         attrs.update(self._config_to_attributes())
         attrs.update(getattr(self, "_extra_metadata", {}))
         return TrajectoryDataset(variables, coords, attrs)
-
-    def _columns_on_host(self, columns):
-        """The host frames of each variable stacked into (N, T), floats
-        NaN where the frame is not valid."""
-        from ..export.io_netcdf import valid_mask
-        stacked = {n: _stack_frames(c) for n, c in columns.items()}
-        # valid: active frames plus the first dead frame (reference
-        # basemodel/__init__.py:2390-2396)
-        valid = valid_mask(stacked["status"], ACTIVE)
-        for vals in stacked.values():
-            if np.issubdtype(vals.dtype, np.floating):
-                np.copyto(vals, np.nan, where=~valid)
-        return stacked
-
-    def _columns_from_device(self, columns):
-        """The device frames of each variable stacked into (N, T) and
-        NaN-filled where they lie, then brought to the host in one copy,
-        a column at a time: the peak is the frames and one column."""
-        status = torch.stack(columns["status"], dim=-1)
-        on_card = status.device.type == "cuda"
-
-        def to_host(column):
-            self.count("run.d2h_bytes", column.nbytes)
-            if not on_card:
-                return column
-            # pinned memory from torch's caching host allocator, which a
-            # later run's columns reuse once this result is gone; the copy
-            # is queued, and waited for below
-            out = torch.empty(column.shape, dtype=column.dtype,
-                              pin_memory=True)
-            return out.copy_(column, non_blocking=True)
-        invalid = _invalid_on_device(status)
-        values = {"status": to_host(status)}
-        del status
-        for n, frames in columns.items():
-            if n != "status":
-                column = torch.stack(frames, dim=-1)
-                if column.is_floating_point():
-                    column.masked_fill_(invalid, float("nan"))
-                values[n] = to_host(column)
-        if on_card:
-            torch.cuda.current_stream(invalid.device).synchronize()
-        self.count("run.results_assembled_on_device")
-        return {n: v.numpy() for n, v in values.items()}
 
     def num_elements_total(self):
         return self.num_elements_scheduled_total

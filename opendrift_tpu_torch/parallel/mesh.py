@@ -251,7 +251,27 @@ def _on_device(dev):
     return contextlib.nullcontext()
 
 
-class ShardedRun:
+class Placement:
+    """How a run's elements are spread over the tiles of ``self.mesh``, as
+    the run loop sees it: a snapshot's tiles, and the final state's,
+    brought to the host."""
+
+    def host_frame(self, snaps, local=False):
+        """A snapshot's per-tile dicts of tensors as one host frame: every
+        tile's slots in global tile order, or with ``local`` (sharded
+        output) this process's own, O(local)."""
+        if local:
+            from . import multihost
+            return multihost.local_rows(snaps, self.mesh)[0]
+        return gather_tiles(snaps)
+
+    def host_state(self, states):
+        """The per-tile element states' arrays joined on the host in
+        global tile order."""
+        return gather_tiles([s.data for s in states])
+
+
+class ShardedRun(Placement):
     """Runs the engine's per-interval callables once per tile of a
     particle-sharded state: each tile steps its own slice against its
     copy of the forcing, drawing the counters of its global slots."""

@@ -60,7 +60,7 @@ from .. import rng
 from ..elements import ElementState
 from ..elements.elements import NOT_RELEASED, ACTIVE
 from . import multihost
-from .mesh import _on_device, move, replicate
+from .mesh import Placement, _on_device, move, replicate
 
 logger = logging.getLogger(__name__)
 
@@ -85,7 +85,7 @@ class TiledStates(list):
     bands ('packed_core') beside every other reader's replicated state."""
 
 
-class DDContext:
+class DDContext(Placement):
     """Per-run state of an engine-level domain decomposition over
     ``mesh`` (``parallel.mesh.Mesh``; its tiles are numbered row-major
     over the (ty, tx) grid)."""
@@ -633,18 +633,23 @@ class DDContext:
                 "peak_occupancy": self.peak_occupancy, "cap": self.cap}
 
     # ----------------------------------------------------------- output --
-    def reorder_frame(self, frame, n_real, keep_id=False):
-        """Re-index a gathered snapshot (per-slot arrays; slots move with
-        migration) into trajectory order by element ID.  Counts the
-        ACTIVE elements whose position tile differs from their owning
-        tile (stuck in transit: destination buffers full) into
-        ``last_in_transit`` and warns: within the halo they are still
-        sampled exactly, beyond it they degrade to the uncovered-position
-        semantics."""
-        frame = dict(frame)
+    def host_frame(self, snaps, local=False):
+        """The gathered snapshot (per-slot arrays; slots move with
+        migration) re-indexed into trajectory order by element ID, or with
+        ``local`` (sharded output) this process's slots as they lie, IDs
+        beside them.  Counts the ACTIVE elements whose position tile
+        differs from their owning tile (stuck in transit: destination
+        buffers full) into ``last_in_transit`` and warns: within the halo
+        they are still sampled exactly, beyond it they degrade to the
+        uncovered-position semantics."""
+        frame = super().host_frame(snaps, local)
+        if local:
+            return frame
+        n_real = self.sim._n_real_elements
+        export = self.sim.export_variables
         order = list(frame)
         ids = np.asarray(frame.pop("ID"))
-        if not keep_id:
+        if export is not None and "ID" not in export:
             order.remove("ID")
         valid = (ids > 0) & (ids <= n_real)
         # conservation, frame by frame: (duplicated, missing) element IDs

@@ -9,7 +9,7 @@ import pytest
 
 from opendrift_tpu_torch.export.io_netcdf import valid_mask
 from opendrift_tpu_torch.models import OceanDrift, OpenOil
-from opendrift_tpu_torch.models.base import _spread_times, _stack_frames
+from opendrift_tpu_torch.models.base import _spread_times
 
 T0 = datetime(2024, 3, 1)
 
@@ -45,17 +45,41 @@ def test_a_release_over_time_seeds_the_same_times():
         _one_at_a_time(T0, T0 + timedelta(hours=6), 1001))
 
 
+@pytest.mark.parametrize("as_tensor", [False, True],
+                         ids=["numpy", "cpu_tensor"])
 @pytest.mark.parametrize("shape, dtype", [
     ((20000,), np.float32), ((20000,), np.int32), ((3, 20000), np.float32),
     ((20000,), np.uint16), ((20000,), np.bool_)])
-def test_stacked_frames_equal_numpys_stack(shape, dtype):
+def test_the_assembled_columns_equal_numpys_stack(shape, dtype, as_tensor):
+    """Frames of strided numpy arrays, or of CPU tensors over them: each
+    column C-ordered and byte-equal to ``np.stack(..., axis=-1)``, floats
+    NaN where ``valid_mask`` is false."""
+    import torch
+    o = OceanDrift(loglevel=50, device="cpu")
+    o.time_step = timedelta(minutes=15)
+    o.time_step_output = timedelta(hours=1)
     rng = np.random.default_rng(1)
-    columns = [(rng.random(shape) * 100).astype(dtype)[..., :19997]
-               for _ in range(7)]
-    got = _stack_frames(columns)
-    want = np.stack(columns, axis=-1)
-    assert got.dtype == want.dtype and got.flags.c_contiguous
-    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    t = 7
+    status = rng.integers(-1, 3, (20000, t)).astype(np.int32)
+    status[:500] = np.sort(status[:500], axis=1)    # released, then dead
+    frames = [{"status": status[:, k][:19997],
+               "x": (rng.random(shape) * 100).astype(dtype)[..., :19997]}
+              for k in range(t)]
+    want = {n: np.stack([f[n] for f in frames], axis=-1) for n in frames[0]}
+    if as_tensor:
+        frames = [{n: torch.from_numpy(v) for n, v in f.items()}
+                  for f in frames]
+    result = o._assemble_result(frames, [T0 + timedelta(hours=k)
+                                         for k in range(t)])
+    if np.issubdtype(dtype, np.floating):
+        want["x"] = np.where(valid_mask(want["status"], 0), want["x"],
+                             np.nan)
+    for name in ("status", "x"):
+        got = result[name].values
+        assert got.dtype == want[name].dtype and got.flags.c_contiguous
+        assert got.shape == want[name].shape
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      want[name].view(np.uint8))
 
 
 def test_the_assembled_result_equals_the_former_assembly():

@@ -160,5 +160,5 @@ def test_the_invalid_frames_are_those_valid_mask_leaves_out():
     rng = np.random.default_rng(5)
     status = rng.integers(-1, 4, (3000, 9)).astype(np.int32)
     status[:100] = np.sort(status[:100], axis=1)    # released, then dead
-    got = base._invalid_on_device(torch.from_numpy(status))
+    got = base._invalid_frames(torch.from_numpy(status))
     np.testing.assert_array_equal(got.numpy(), ~valid_mask(status, 0))
